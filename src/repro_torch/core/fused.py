@@ -54,13 +54,16 @@ def _concat_fields(per_net):
 
 def model_bundle(cfg: SubdomainModelConfig, params: dict, x, act: str,
                  width_masks: dict | None = None,
-                 d2_dirs: tuple | None = None):
+                 d2_dirs: tuple | None = None, bwd: str = "fused"):
     """Fused (u, du, d2u) for the full multi-net subdomain model.
 
     Returns u (..., n, F), du (..., dim, n, F), d2u (..., dim, n, F) with
-    F = cfg.out_dim and d2u the diagonal second derivatives."""
+    F = cfg.out_dim and d2u the diagonal second derivatives, differentiable
+    w.r.t. params (``bwd`` selects the backward of
+    ``ops.pinn_mlp_forward2``: the fused reverse sweep or the recompute
+    oracle)."""
     (bundle,) = model_bundle_segments(cfg, params, (x,), act, width_masks,
-                                      d2_dirs)
+                                      d2_dirs, bwd)
     return bundle
 
 
@@ -83,7 +86,7 @@ def model_bundle_select(cfg: SubdomainModelConfig, params: dict, x, act_code,
 
 def model_bundle_segments(cfg: SubdomainModelConfig, params: dict, x_segs,
                           act: str, width_masks: dict | None = None,
-                          d2_dirs: tuple | None = None):
+                          d2_dirs: tuple | None = None, bwd: str = "fused"):
     """Megabatched fused bundles: ONE kernel call per field net for ALL point
     segments.  Returns a tuple of per-segment (u, du, d2u) bundles with field
     outputs concatenated like :func:`model_bundle`; each equals a separate
@@ -93,7 +96,7 @@ def model_bundle_segments(cfg: SubdomainModelConfig, params: dict, x_segs,
         wm = None if width_masks is None else width_masks.get(name)
         Ws, bs, a = _fold_net(c, params[name], wm)
         bundles = ops.pinn_mlp_forward2_segments(x_segs, Ws, bs, a, act=act,
-                                                 d2_dirs=d2_dirs)
+                                                 d2_dirs=d2_dirs, bwd=bwd)
         for segs, b in zip(per_seg, bundles):
             segs.append(b)
     return tuple(_concat_fields(segs) for segs in per_seg)

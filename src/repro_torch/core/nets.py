@@ -145,6 +145,18 @@ def model_apply(cfg: SubdomainModelConfig, params: dict, x: torch.Tensor,
     return torch.cat(outs, dim=-1)
 
 
+def scalar_field_fn(cfg, params, act_code, width_masks=None):
+    """Closure x -> (out_dim,) for a SINGLE point (x of shape (dim,)): the
+    form the per-point PDE oracles differentiate with ``torch.func.jvp``
+    (batched over points and subdomains by ``torch.func.vmap``)."""
+
+    def fn(x1: torch.Tensor) -> torch.Tensor:
+        return model_apply(cfg, params, x1[None, :], act_code,
+                           width_masks)[0]
+
+    return fn
+
+
 def _stack_trees(trees: list):
     t0 = trees[0]
     if isinstance(t0, dict):
@@ -184,6 +196,42 @@ def map_tree(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(map_tree(fn, v) for v in tree)
     return fn(tree)
+
+
+def map_trees(fn, *trees):
+    """``fn`` over the matching leaves of several trees of one structure."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: map_trees(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(map_trees(fn, *(t[i] for t in trees))
+                        for i in range(len(t0)))
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict / list / tuple tree in the reference's
+    flatten order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """Rebuild ``like``'s structure from leaves in :func:`tree_leaves`
+    order."""
+    it = iter(leaves)
+
+    def rec(t):
+        if isinstance(t, dict):
+            out = {k: rec(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(rec(v) for v in t)
+        return next(it)
+    return rec(like)
 
 
 def params_from_numpy(tree, device=None, dtype=torch.float32):

@@ -4,11 +4,24 @@
 //   K1  src/repro/kernels/pinn_mlp.py::_kernel   (u and du/dx_j)
 //   K2  src/repro/kernels/pinn_mlp.py::_kernel2  (u, du/dx_j and d2u/dx_j^2;
 //       the recurrence is _kernel2_run)
+//   K3  src/repro/kernels/pinn_mlp.py::_kernel2_res (K2 plus the spills of
+//       the reverse sweep, the training forward)
 // with one templated kernel: template parameters are the activation
-// (0 tanh, 1 sin, 2 cos), d_in (1-3) and NS, the number of second-order
-// tangent streams kept.  NS == 0 is K1's counterpart; NS > 0 is K2's, with
-// the s-streams of directions outside d2_dirs skipped (their d2u rows are
-// written as exact zeros).
+// (0 tanh, 1 sin, 2 cos), d_in (1-3), NS, the number of second-order
+// tangent streams kept, and SAVE.  NS == 0 is K1's counterpart; NS > 0 is
+// K2's, with the s-streams of directions outside d2_dirs skipped (their d2u
+// rows are written as exact zeros).  SAVE adds K3's spills; the tangent
+// math is the same code either way, as _kernel2_run is one copy for K2 and
+// K3.
+//
+// Spills (SAVE): before activation stage l a block writes the streams it
+// holds, the ones ENTERING the stage, to
+//   res (n_sub, n_layers, S, n_pts, wp),  S = 1 + d_in + NS,
+// stream order h, t_0..t_{d_in-1}, then the kept s_k (k-th entry of
+// d2_dirs).  Each (stream, tile) is a contiguous run of rows x wp floats,
+// written row-major from the shared-memory tile, so the stores coalesce;
+// the reverse sweep (pinn_mlp_bwd.cu) reads the same runs.  With NS == 0
+// only h and t are spilled.
 //
 // What bounds it on this card: FP32 FMA throughput.  Per point and layer the
 // matmul work is (1 + d_in + NS) * 2 * W_in * W_out FLOP, while the bytes
@@ -16,7 +29,12 @@
 // out: weights are re-read per block from L2, and every activation and
 // tangent stays on chip.  At serving batches of a few thousand points the
 // whole call is a few microseconds of arithmetic, so launch latency bounds
-// it there.
+// it there.  With SAVE the spills change that at small widths: at the
+// training shape (wp = 24, 4 hidden layers, S = 4 for d_in = 2 and
+// d2_dirs = (0,)) they are 1.5 KB per point, about 7 MB per step for the
+// ~4.6k megabatch rows of a 2x2 Burgers XPINN, i.e. 2.1 us at 3.35 TB/s,
+// against about 63 MFLOP, 0.9 us at 67 TFLOP/s: the spill bytes bound K3
+// there (and at that size launch latency, ~15 us, bounds it in practice).
 //
 // Design.  Grid = (point tiles, n_sub): a block walks the whole layer stack
 // for tile_m rows of ONE subdomain, reading that subdomain's packed weights
@@ -58,6 +76,7 @@ struct Params {
   float* u;         // (n_sub, n_pts, n_out)
   float* du;        // (n_sub, d_in, n_pts, n_out)
   float* d2u;       // (n_sub, d_in, n_pts, n_out); unused when NS == 0
+  float* res;       // (n_sub, n_layers, S, n_pts, wp) spills; SAVE only
   int n_pts, wp, n_layers, n_out, tile_m;
   int sel[3];       // s-stream k carries direction sel[k]
   int slot[3];      // direction j -> its s-stream, -1 when pruned
@@ -82,7 +101,7 @@ __device__ __forceinline__ void act_eval(float z, float& g, float& d1,
   }
 }
 
-template <int ACT, int D_IN, int NS>
+template <int ACT, int D_IN, int NS, bool SAVE>
 __global__ void __launch_bounds__(kThreads)
 pinn_mlp_fwd_kernel(const Params p) {
   constexpr int S = 1 + D_IN + NS;  // streams: h, t_0..t_{d_in-1}, s_0..
@@ -126,9 +145,24 @@ pinn_mlp_fwd_kernel(const Params p) {
       const int k = i / n, c = i - k * n;
       sw[i] = Wl[k * wp + c];
     }
-    // 1. activation stage, elementwise and in place
+    // 1. activation stage, elementwise and in place; with SAVE the streams
+    //    entering it are spilled first (rows past the tail are not)
     const float al = A[l];
+    float* spill = nullptr;
+    size_t sstride = 0;
+    if constexpr (SAVE) {
+      sstride = (size_t)p.n_pts * wp;
+      spill = p.res + ((size_t)q * p.n_layers + l) * S * sstride +
+              (size_t)row0 * wp;
+    }
     for (int i = threadIdx.x; i < plane; i += kThreads) {
+      if constexpr (SAVE) {
+        if (i < rows * wp) {
+#pragma unroll
+          for (int s = 0; s < S; ++s)
+            spill[s * sstride + i] = in[s * plane + i];
+        }
+      }
       float g, f1, f2;
       act_eval<ACT>(al * in[i], g, f1, f2);
       const float d1 = f1 * al, d2 = f2 * (al * al);
@@ -205,10 +239,10 @@ pinn_mlp_fwd_kernel(const Params p) {
   }
 }
 
-template <int ACT, int D_IN, int NS>
+template <int ACT, int D_IN, int NS, bool SAVE>
 cudaError_t launch(const Params& p, int n_sub, size_t smem,
                    cudaStream_t stream) {
-  auto kern = pinn_mlp_fwd_kernel<ACT, D_IN, NS>;
+  auto kern = pinn_mlp_fwd_kernel<ACT, D_IN, NS, SAVE>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -225,7 +259,11 @@ cudaError_t by_ns(int ns, const Params& p, int n_sub, size_t smem,
   if constexpr (NS > D_IN) {
     return cudaErrorInvalidValue;
   } else {
-    if (ns == NS) return launch<ACT, D_IN, NS>(p, n_sub, smem, stream);
+    if (ns == NS) {
+      return p.res != nullptr
+                 ? launch<ACT, D_IN, NS, true>(p, n_sub, smem, stream)
+                 : launch<ACT, D_IN, NS, false>(p, n_sub, smem, stream);
+    }
     return by_ns<ACT, D_IN, NS + 1>(ns, p, n_sub, smem, stream);
   }
 }
@@ -245,10 +283,12 @@ cudaError_t by_d_in(int d_in, int ns, const Params& p, int n_sub, size_t smem,
 
 extern "C" {
 
+// res == nullptr: K1/K2; res != nullptr: K3, which also writes the spills
 int pinn_mlp_fwd(const void* x, const void* w, const void* b, const void* a,
-                 void* u, void* du, void* d2u, int n_sub, int n_pts, int d_in,
-                 int wp, int n_layers, int n_out, int act, int n_sel, int sel0,
-                 int sel1, int sel2, void* stream) {
+                 void* u, void* du, void* d2u, void* res, int n_sub,
+                 int n_pts, int d_in, int wp, int n_layers, int n_out,
+                 int act, int n_sel, int sel0, int sel1, int sel2,
+                 void* stream) {
   if (n_sub <= 0 || n_pts <= 0 || d_in < 1 || d_in > 3 || wp <= 0 ||
       wp % 4 != 0 || n_layers < 0 || n_out <= 0 || n_out > wp ||
       n_sel < 0 || n_sel > d_in || (n_sel > 0 && d2u == nullptr))
@@ -261,6 +301,7 @@ int pinn_mlp_fwd(const void* x, const void* w, const void* b, const void* a,
   p.u = static_cast<float*>(u);
   p.du = static_cast<float*>(du);
   p.d2u = static_cast<float*>(d2u);
+  p.res = static_cast<float*>(res);
   p.n_pts = n_pts;
   p.wp = wp;
   p.n_layers = n_layers;

@@ -9,11 +9,29 @@ one launch for every subdomain.  No point padding: the kernel masks the
 ragged tail itself.
 
 Dispatch: CPU tensors run the plain recurrence (``kernels.ref``); CUDA
-tensors run the hand-written kernel (``kernels.pinn_mlp``).  The
+tensors run the hand-written kernels (``kernels.pinn_mlp``).  The
 heterogeneous-activation entry (:func:`pinn_mlp_forward2_select`) is plain
 tensor code on both devices, as in the reference (which has no kernel for
-it either).  These entries are forward-only; the backward kernels come with
-the training path.
+it either).
+
+Training: :func:`pinn_mlp_forward2` is differentiable w.r.t. (x, Ws, bs, a)
+through :class:`_Forward2`, a ``torch.autograd.Function`` around the PACKED
+call ``(x, w_stack, b_stack, a_vec) -> (u, du, d2u)`` — the counterpart of
+the reference's ``jax.custom_vjp`` (``ops.py:177-248`` there).  Packing
+(``F.pad`` / ``torch.stack``), the model folding and the segment ``cat`` /
+slices around it stay ordinary torch code, differentiated by autograd.
+Two backward paths (``bwd``):
+
+* ``"fused"`` (default): the forward runs K3, which also spills the streams
+  of every activation stage, and the backward runs K4, the hand-derived
+  reverse sweep over them (on CPU tensors: their plain versions);
+* ``"ref"``: the forward saves only its inputs and the backward recomputes
+  through autograd of the plain recurrence — the counterpart of the
+  reference's ``jax.vjp`` through ``ref.pinn_mlp_ref2``; taken only when
+  asked for.
+
+Inference (no tensor needs a gradient, or grad mode off) runs the
+forward-only kernels K1/K2 and saves nothing.
 """
 from __future__ import annotations
 
@@ -68,19 +86,88 @@ def pinn_mlp_forward(x, Ws, bs, a, act="tanh"):
     return _unbatch(outs, single)
 
 
-def pinn_mlp_forward2(x, Ws, bs, a, act="tanh", d2_dirs=None):
-    """Fused PINN MLP forward + input-Jacobian + diagonal input-Hessian (K2).
+BWD_PATHS = ("fused", "ref")  # the backward paths of pinn_mlp_forward2
+
+
+class _Forward2(torch.autograd.Function):
+    """Differentiable packed second-order call (K3 forward, K4 backward).
+
+    ``forward(x, w_stack, b_stack, a_vec, n_out, act, sel, bwd)`` on the
+    kernels' layout (leading subdomain axis); ``sel`` is the tuple of kept
+    second-order directions.  Returns (u, du, d2u); the backward returns
+    (x̄, W̄ stack, b̄ stack, ā)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, av, n_out, act, sel, bwd):
+        ctx.n_out, ctx.act, ctx.sel, ctx.bwd = n_out, act, sel, bwd
+        if bwd == "ref":
+            ctx.save_for_backward(x, w, b, av)
+            if sel == ():
+                u, du = pinn_mlp.pinn_mlp_fwd1(x, w, b, av, n_out=n_out,
+                                               act=act)
+                return u, du, torch.zeros_like(du)
+            return pinn_mlp.pinn_mlp_fwd2(x, w, b, av, n_out=n_out, act=act,
+                                          d2_dirs=sel)
+        u, du, d2u, res = pinn_mlp.pinn_mlp_fwd2_res(
+            x, w, b, av, n_out=n_out, act=act, d2_dirs=sel)
+        ctx.save_for_backward(x, w, av, res)
+        return u, du, d2u
+
+    @staticmethod
+    def backward(ctx, cu, cdu, cd2u):
+        # pruned d2u rows are constants (exact zeros), so their cotangents
+        # must not flow (the reference masks them, ops.py:230-233): both
+        # backwards below read only the rows of the kept directions
+        n_out, act, sel = ctx.n_out, ctx.act, ctx.sel
+        if ctx.bwd == "ref":
+            x, w, b, av = ctx.saved_tensors
+            with torch.enable_grad():
+                ins = [t.detach().requires_grad_() for t in (x, w, b, av)]
+                outs = pinn_mlp.pinn_mlp_fwd2_plain(
+                    *ins, n_out=n_out, act=act, d2_dirs=sel)
+                pairs = [(o, c) for o, c in zip(outs, (cu, cdu, cd2u))
+                         if o.requires_grad]
+                grads = torch.autograd.grad([o for o, _ in pairs], ins,
+                                            [c for _, c in pairs],
+                                            allow_unused=True)
+            grads = [torch.zeros_like(t) if g is None else g
+                     for g, t in zip(grads, ins)]
+        else:
+            x, w, av, res = ctx.saved_tensors
+            cx, cw, cb, ca = pinn_mlp.pinn_mlp_bwd2(
+                x, w, av, res, cu.contiguous(), cdu.contiguous(),
+                cd2u.contiguous(), n_out=n_out, act=act, d2_dirs=sel)
+            grads = [cx, cw, cb, ca]
+        return (*grads, None, None, None, None)
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def pinn_mlp_forward2(x, Ws, bs, a, act="tanh", d2_dirs=None, bwd="fused"):
+    """Fused PINN MLP forward + input-Jacobian + diagonal input-Hessian.
 
     Returns (u (..., N, out), du (..., d_in, N, out), d2u (..., d_in, N, out))
     with d2u[j] = d²u/dx_j².  ``d2_dirs`` (None = all) prunes the
     second-order stream to the listed directions; the other rows are exact
-    zeros.  With ``d2_dirs=()`` no second-order stream is carried at all:
-    the first-order kernel runs and d2u is zeros.
+    zeros.  With ``d2_dirs=()`` no second-order stream is carried at all and
+    d2u is zeros.
+
+    Differentiable w.r.t. (x, Ws, bs, a): when any of them needs a gradient
+    the call goes through :class:`_Forward2` (K3 + K4 for ``bwd="fused"``,
+    the recompute oracle for ``bwd="ref"``); otherwise it runs the
+    forward-only kernels (K1 for ``d2_dirs=()``, else K2).
     """
+    if bwd not in BWD_PATHS:
+        raise ValueError(f"unknown backward path {bwd!r}")
     n_out = Ws[-1].shape[-1]
     sel = None if d2_dirs is None else tuple(d2_dirs)
     x, w, b, av, single = _prepare(x, Ws, bs, a)
-    if sel == ():
+    if _needs_grad(x, w, b, av):
+        dirs = tuple(range(x.shape[-1])) if sel is None else sel
+        outs = _Forward2.apply(x, w, b, av, n_out, act, dirs, bwd)
+    elif sel == ():
         u, du = pinn_mlp.pinn_mlp_fwd1(x, w, b, av, n_out=n_out, act=act)
         outs = (u, du, torch.zeros_like(du))
     else:
@@ -100,7 +187,8 @@ def pinn_mlp_forward2_select(x, Ws, bs, a, code, d2_dirs=None):
                                     else tuple(d2_dirs))
 
 
-def pinn_mlp_forward2_segments(x_segs, Ws, bs, a, act="tanh", d2_dirs=None):
+def pinn_mlp_forward2_segments(x_segs, Ws, bs, a, act="tanh", d2_dirs=None,
+                               bwd="fused"):
     """ONE fused call for several point sets sharing d_in: the segments are
     concatenated along the point axis, evaluated by one
     :func:`pinn_mlp_forward2` and sliced back.  The math is row-independent,
@@ -108,7 +196,7 @@ def pinn_mlp_forward2_segments(x_segs, Ws, bs, a, act="tanh", d2_dirs=None):
     (u, du, d2u) bundles, one per segment."""
     sizes = [int(x.shape[-2]) for x in x_segs]
     u, du, d2u = pinn_mlp_forward2(torch.cat(list(x_segs), dim=-2), Ws, bs,
-                                   a, act=act, d2_dirs=d2_dirs)
+                                   a, act=act, d2_dirs=d2_dirs, bwd=bwd)
     out, ofs = [], 0
     for n in sizes:
         out.append((u[..., ofs:ofs + n, :], du[..., ofs:ofs + n, :],

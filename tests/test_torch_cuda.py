@@ -148,3 +148,96 @@ def test_engine_two_nets_with_masks_on_card_matches_cpu(dev):
     want = FieldEngine(bundle, device="cpu").evaluate(pts, order=2)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------- training kernels: K3 and K4
+
+def _cotangents(dev, n_sub, n, d_in, n_out, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dev) for shape in
+            ((n_sub, n, n_out), (n_sub, d_in, n, n_out),
+             (n_sub, d_in, n, n_out))]
+
+
+def _leaf_close(got, want, tol=1e-5):
+    """|got - want| <= tol * max(1, max|want|), per leaf."""
+    if want.numel():
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("d2_dirs", [None, (1,), ()], ids=str)
+@pytest.mark.parametrize("act", ["tanh", "sin", "cos"])
+def test_training_kernels_match_plain_on_card(dev, act, d2_dirs):
+    """K3 (outputs and every spill) and K4 (all four cotangents) against
+    their plain versions on the card, ragged N, three subdomains."""
+    args = _packed(dev, seed=7 + len(act), n=301)
+    before = dict(pinn_mlp.launches)
+    got = pinn_mlp.pinn_mlp_fwd2_res(*args, n_out=2, act=act,
+                                     d2_dirs=d2_dirs)
+    want = pinn_mlp.pinn_mlp_fwd2_res_plain(*args, n_out=2, act=act,
+                                            d2_dirs=d2_dirs)
+    torch.cuda.synchronize()
+    assert pinn_mlp.launches["pinn_mlp_fwd2_res"] == \
+        before["pinn_mlp_fwd2_res"] + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    x, w, b, av = args
+    cts = _cotangents(dev, 3, 301, 2, 2, seed=len(act))
+    res = got[3]
+    kern = pinn_mlp.pinn_mlp_bwd2(x, w, av, res, *cts, n_out=2, act=act,
+                                  d2_dirs=d2_dirs)
+    plain = pinn_mlp.pinn_mlp_bwd2_plain(x, w, av, res, *cts, n_out=2,
+                                         act=act, d2_dirs=d2_dirs)
+    torch.cuda.synchronize()
+    assert pinn_mlp.launches["pinn_mlp_bwd2"] == before["pinn_mlp_bwd2"] + 1
+    for g, p in zip(kern, plain):
+        assert g.shape == p.shape
+        _leaf_close(g, p)
+    again = pinn_mlp.pinn_mlp_bwd2(x, w, av, res, *cts, n_out=2, act=act,
+                                   d2_dirs=d2_dirs)
+    for g, a in zip(kern, again):
+        assert torch.equal(g, a)   # bitwise: no atomics, fixed order
+
+
+@pytest.mark.parametrize("width,depth,d_in,n", [(128, 5, 3, 1030),
+                                                (24, 4, 2, 100_000),
+                                                (13, 0, 1, 50)])
+def test_training_kernels_shapes_on_card(dev, width, depth, d_in, n):
+    """The widest layer (shared-memory tile choice), many tiles per block
+    (the per-block partial loop), and no hidden layer."""
+    args = _packed(dev, n_sub=2, n=n, d_in=d_in, width=width, depth=depth,
+                   n_out=1)
+    got = pinn_mlp.pinn_mlp_fwd2_res(*args, n_out=1, act="tanh")
+    want = pinn_mlp.pinn_mlp_fwd2_res_plain(*args, n_out=1, act="tanh")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    x, w, b, av = args
+    cts = _cotangents(dev, 2, n, d_in, 1, seed=width)
+    kern = pinn_mlp.pinn_mlp_bwd2(x, w, av, got[3], *cts, n_out=1)
+    plain = pinn_mlp.pinn_mlp_bwd2_plain(x, w, av, got[3], *cts, n_out=1)
+    for g, p in zip(kern, plain):
+        _leaf_close(g, p)
+
+
+@pytest.mark.parametrize("bwd", ["fused", "ref"])
+def test_autograd_boundary_on_card_matches_cpu(dev, bwd):
+    """torch.autograd.grad through ops.pinn_mlp_forward2 on the card (K3 +
+    K4 for bwd="fused") against the same call on the CPU."""
+    g = torch.Generator().manual_seed(3)
+    dims = [2, 24, 24, 1]
+    Ws = [torch.randn((4, a, c), generator=g) * 0.5
+          for a, c in zip(dims[:-1], dims[1:])]
+    bs = [0.1 * torch.randn((4, c), generator=g) for c in dims[1:]]
+    a = 0.9 + 0.2 * torch.rand((4, 2), generator=g)
+    x = 2 * torch.rand((4, 200, 2), generator=g) - 1
+    cts = _cotangents("cpu", 4, 200, 2, 1, seed=5)
+    grads = {}
+    for d in ("cpu", dev):
+        ins = [t.to(d).requires_grad_() for t in [x, *Ws, *bs, a]]
+        outs = ops.pinn_mlp_forward2(ins[0], ins[1:4], ins[4:7], ins[7],
+                                     act="tanh", d2_dirs=(0,), bwd=bwd)
+        grads[str(d)] = [t.cpu() for t in torch.autograd.grad(
+            outs, ins, [c.to(d) for c in cts])]
+    for got, want in zip(grads[str(dev)], grads["cpu"]):
+        _leaf_close(got, want)

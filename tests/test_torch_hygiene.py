@@ -46,7 +46,9 @@ def test_no_jax_or_reference_imports(path):
 def test_scan_sees_the_whole_port():
     names = {p.relative_to(PORT).as_posix() for p in FILES[:-1]}
     for must in ("kernels/pinn_mlp.py", "kernels/ops.py", "serve/engine.py",
-                 "launch/serve_field.py", "checkpoint/ckpt.py"):
+                 "launch/serve_field.py", "checkpoint/ckpt.py",
+                 "core/trainer.py", "core/losses.py", "core/halo.py",
+                 "data/points.py", "optim/adam.py", "launch/quickstart.py"):
         assert must in names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core") and not _forbidden("jaxtyping_x")
