@@ -37,15 +37,48 @@ ends the run with a non-zero exit code and no result line:
    version run on a CUDA tensor; then 10 steps from one init on the card
    and on the CPU are held together, and the ms per training step is split
    into forward kernel, backward kernel and everything else;
-6. **report** — one ``{"kernels": [...]}`` line (K1-K4), the card's name
+6. **lm kernels** — hold K5 (flash attention) against its plain version on
+   the card: float32 (rtol = atol = 2e-5) and bf16 (both outputs bf16,
+   rtol = atol = 1e-2), heads H/Hk 32/8, 8/8, 4/1, head dims 64, 128, 100,
+   S = T in {1, 37, 64, 130, 2048}, and S != T causal (top-left) and not
+   causal, each in the model's (B, S, H, dh) layout and as (B, H, S, dh)
+   storage; and K6 (WKV6) against its plain version (rtol = atol = 2e-4,
+   the reference's bound): P 16, 64, 128, T in {1, 17, 256, 1000}, w from
+   U(0.2, 0.98), a strong decay w = 0.05 and a near-1 decay w ~
+   exp(-e^-6) (the init's decay_bias);
+7. **lm timing** — K5 at llama3.2-1b's per-layer prefill shape (B = 1,
+   H = 32, Hk = 8, dh = 64, bf16, causal) at S = T = 4096 and 32768, beside
+   its plain version and PyTorch's ``scaled_dot_product_attention`` on the
+   same tensors (timed only; the port never calls it); K6 at rwkv6-3b's
+   per-layer shape (B = 1, T = 4096, H = 40, P = 64, float32) beside its
+   plain version;
+8. **llm** — llama3.2-1b and rwkv6-3b at their published width and depth,
+   weights drawn from a seed on the card: prefill (B = 2, S = 1024 /
+   B = 1, T = 1024) through the kernels with the launch counts set to 0 just
+   before and read just after (exactly n_layers K5 or K6 launches, no plain
+   version on a CUDA tensor), a profiler trace of it, the same prefill
+   through the plain versions in bf16 (difference printed) and in a float32
+   copy of the config (held at LLM_F32_TOL of max |logit|), and 16 decode
+   steps held against the float32 prefill (2e-3 of max |logit|, the
+   reference's bound);
+9. **llm serve** — ``repro_torch.launch.serve.main`` serves each of them at
+   full size (``--no-reduced --batch 4 --prompt-len 16 --gen 16``), twice
+   (the first run pays the card's first-use costs): a (4, 32) token array,
+   its tokens/s printed;
+10. **report** — one ``{"kernels": [...]}`` line (K1-K6), the card's name
    and power limit from ``nvidia-smi``, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+Each phase prints its seconds.
 
 The bound of a shape is the larger of its bytes (inputs read once, outputs
 written once; for K3 the spills are outputs, for K4 inputs) over 3.35 TB/s
-and its matrix-product FLOPs (two per multiply-add, pruned second-order
-streams not counted; K4 does two products per stream and layer) over
-67 TFLOP/s, the H100 SXM's float32 rate outside the tensor cores.
+and its operations over the card's rate for their type: K1-K4 their
+matrix-product FLOPs (two per multiply-add, pruned second-order streams not
+counted; K4 does two products per stream and layer), K6 the recurrence's
+4 P^2 FLOP per step and head, over 67 TFLOP/s, the H100 SXM's float32 rate
+outside the tensor cores; K5 its 4 dh FLOP per visible (query, key) pair
+and head over 989 TFLOP/s, the bf16 tensor-core rate, since it takes and
+returns bf16 at the timed shape.
 
 The script imports nothing of the JAX package.  Without a CUDA card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -72,15 +105,35 @@ SRC = os.path.join(ROOT, "src")
 SEED = 0
 TOL = 1e-5               # rtol and atol, float32 kernel vs float32 plain
 FP32_FLOPS = 67e12       # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS = 989e12      # H100 SXM, bf16 tensor cores, dense
 HBM_BYTES = 3.35e12      # H100 SXM, bytes/s
 SOURCES = {"pinn_mlp_fwd1": "src/repro_torch/csrc/pinn_mlp_fwd.cu",
            "pinn_mlp_fwd2": "src/repro_torch/csrc/pinn_mlp_fwd.cu",
            "pinn_mlp_fwd2_res": "src/repro_torch/csrc/pinn_mlp_fwd.cu",
-           "pinn_mlp_bwd2": "src/repro_torch/csrc/pinn_mlp_bwd.cu"}
+           "pinn_mlp_bwd2": "src/repro_torch/csrc/pinn_mlp_bwd.cu",
+           "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+           "wkv6": "src/repro_torch/csrc/wkv6.cu"}
 REPLACES = {"pinn_mlp_fwd1": "src/repro/kernels/pinn_mlp.py:82",
             "pinn_mlp_fwd2": "src/repro/kernels/pinn_mlp.py:148",
             "pinn_mlp_fwd2_res": "src/repro/kernels/pinn_mlp.py:166",
-            "pinn_mlp_bwd2": "src/repro/kernels/pinn_mlp.py:184"}
+            "pinn_mlp_bwd2": "src/repro/kernels/pinn_mlp.py:184",
+            "flash_attention": "src/repro/kernels/flash_attention.py:31",
+            "wkv6": "src/repro/kernels/wkv6.py:27"}
+# K5 against its plain version: float32 at 2e-5 (the sums run in another
+# order); bf16 with both outputs rounded to bf16 at 1e-2 (values that agree
+# to float32 precision may round to neighbouring bf16 numbers, 2^-8
+# relative).  K6 at 2e-4, the reference's own bound for its WKV6 kernel
+# (tests/test_kernels_wkv6.py): exponentials and cumulative sums of log w
+# run in another order.
+FA_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+WKV_TOL = 2e-4
+# full-size prefill, kernels against plain versions on the card in a
+# float32 copy of the config, relative to max |logit|: 16 or 32 layers of
+# float32 sums in another order (the reduced models agree with the JAX
+# package to 4e-7 on the CPU)
+LLM_F32_TOL = 1e-4
+DECODE_TOL = 2e-3        # decode vs prefill, the reference's bound
+LLM = {"llama3.2-1b": (2, 1024), "rwkv6-3b": (1, 1024)}   # prefill (B, S)
 # the serving path's shape (width, depth, points per subdomain): the served
 # Burgers net at a serving batch; timing() runs it with n_sub=4, d_in=2
 MAIN = (24, 4, 512)
@@ -686,6 +739,337 @@ def train_phase(dev) -> dict:
     return {"launches": counts, "step_ms": step_ms}
 
 
+# ---------------------------------------------------------------- LLM kernels
+
+def _allclose(got, want, tol) -> float:
+    """Raise unless |got - want| <= tol + tol |want| everywhere and got is
+    finite; returns the max abs difference."""
+    import torch
+
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{tuple(got.shape)} {got.dtype} != {tuple(want.shape)} "
+          f"{want.dtype}")
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), "non-finite kernel output")
+    diff = (g - w).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    check(bool((diff <= tol + tol * w.abs()).all()),
+          f"kernel disagrees: max abs {err:.3e} (tol {tol})")
+    return err
+
+
+def _qkv(gen, B, S, T, H, Hk, dh, dtype, heads_first, dev):
+    """q (B, S, H, dh), k/v (B, T, Hk, dh) on the card; with
+    ``heads_first`` stored as (B, H, S, dh) and passed as transposed views
+    (the layout of the reference's ops signature)."""
+    import torch
+
+    if heads_first:
+        q = torch.randn((B, H, S, dh), generator=gen, device=dev)
+        k, v = (torch.randn((B, Hk, T, dh), generator=gen, device=dev)
+                for _ in range(2))
+        return [t.to(dtype).transpose(1, 2) for t in (q, k, v)]
+    q = torch.randn((B, S, H, dh), generator=gen, device=dev)
+    k, v = (torch.randn((B, T, Hk, dh), generator=gen, device=dev)
+            for _ in range(2))
+    return [t.to(dtype) for t in (q, k, v)]
+
+
+def _rkvwu(gen, B, T, H, P, w_mode, dev):
+    import torch
+
+    r, k, v = (torch.randn((B, T, H, P), generator=gen, device=dev)
+               for _ in range(3))
+    if w_mode == "uniform":
+        w = 0.2 + 0.78 * torch.rand((B, T, H, P), generator=gen, device=dev)
+    elif w_mode == "strong":
+        w = torch.full((B, T, H, P), 0.05, device=dev)
+    else:   # near 1: the init's decay_bias = -6, w = exp(-e^(-6 + dw))
+        w = torch.exp(-torch.exp(-6.0 + 0.01 * torch.randn(
+            (B, T, H, P), generator=gen, device=dev)))
+    u = torch.randn((H, P), generator=gen, device=dev)
+    return r, k, v, w, u
+
+
+def lm_sweep(dev) -> dict:
+    """K5 and K6 against their plain versions on the card."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import wkv6 as WK
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    cases = []
+    for H, Hk in ((32, 8), (8, 8), (4, 1)):
+        for dh in (64, 128, 100):
+            cases += [(H, Hk, dh, n, n, True) for n in (1, 37, 64, 130, 2048)]
+    cases += [(32, 8, dh, S, T, c) for dh in (64, 128, 100)
+              for S, T in ((50, 130), (130, 50), (1, 64)) for c in (True, False)]
+    n_fa = 0
+    for H, Hk, dh, S, T, causal in cases:
+        for dname in ("float32", "bfloat16"):
+            for heads_first in (False, True):
+                B = 1 if max(S, T) > 1000 else 2
+                q, k, v = _qkv(gen, B, S, T, H, Hk, dh, getattr(torch, dname),
+                               heads_first, dev)
+                got = FA.flash_attention(q, k, v, causal=causal)
+                want = FA.flash_attention_plain(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                check(got.stride() == q.stride(), "output layout")
+                err = _allclose(got, want, FA_TOL[dname])
+                worst[dname] = max(worst[dname], err)
+                n_fa += 1
+        print(f"K5 H{H}/{Hk} dh{dh} S{S} T{T} causal={causal} ok")
+    emit({"k5_sweep_cases": n_fa, "tol": FA_TOL, "max_abs_err": dict(worst)})
+
+    wworst, n_wkv = 0.0, 0
+    for P in (16, 64, 128):
+        for T, chunk in ((1, 1), (17, 17), (256, 64), (1000, 50)):
+            for w_mode in ("uniform", "strong", "near1"):
+                args = _rkvwu(gen, 2, T, 4, P, w_mode, dev)
+                got = WK.wkv6(*args)
+                want = WK.wkv6_plain(*args, chunk=chunk)
+                torch.cuda.synchronize()
+                err = _allclose(got, want, WKV_TOL)
+                wworst = max(wworst, err)
+                n_wkv += 1
+                print(f"K6 P{P} T{T} w={w_mode} abs {err:.1e}")
+    emit({"k6_sweep_cases": n_wkv, "tol": WKV_TOL, "max_abs_err": wworst})
+    return {"flash_attention": max(worst.values()), "wkv6": wworst}
+
+
+def fa_bound(B, S, H, Hk, dh, nbytes_el=2) -> tuple[float, str, int, int]:
+    """K5 at S == T, causal (top-left): q, k, v read once and o written once;
+    4 dh FLOP per visible (query, key) pair and head, S (S + 1) / 2 pairs."""
+    nbytes = nbytes_el * B * S * dh * (2 * H + 2 * Hk)
+    flops = 4 * dh * B * H * S * (S + 1) // 2
+    t_bytes, t_ops = nbytes / HBM_BYTES, flops / BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations", nbytes, flops)
+
+
+def wkv_bound(B, T, H, P) -> tuple[float, str, int, int]:
+    """K6: r, k, v, w read once, y written once, u read once (float32); the
+    recurrence's 4 P^2 FLOP per step and head (the state read through r and
+    its rank-1 update)."""
+    nbytes = 4 * (5 * B * T * H * P + H * P)
+    flops = 4 * P * P * B * T * H
+    t_bytes, t_ops = nbytes / HBM_BYTES, flops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes > t_ops else "operations", nbytes, flops)
+
+
+def _sdpa(q, k, v):
+    """PyTorch's fused attention on the same (B, S, H, dh) tensors, causal
+    (its mask is aligned top-left too) with GQA; the math backend is
+    excluded, so it is a fused kernel or an error."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION]):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+
+def lm_timing(dev) -> dict:
+    """K5 at llama3.2-1b's per-layer prefill shape (4096 and 32768 tokens)
+    and K6 at rwkv6-3b's (4096 steps): device ms of the kernel (CUDA graph of
+    launches), its plain version, and for K5 PyTorch's SDPA."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import wkv6 as WK
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    out = {}
+    B, H, Hk, dh = 1, 32, 8, 64
+    for S, reps, preps in ((4096, 20, 3), (32768, 2, 1)):
+        q, k, v = _qkv(gen, B, S, S, H, Hk, dh, torch.bfloat16, False, dev)
+        kern = lambda: FA.flash_attention(q, k, v, causal=True)
+        plain = lambda: FA.flash_attention_plain(q, k, v, causal=True)
+        lib = lambda: _sdpa(q, k, v)
+        sdpa_err = float((lib().float() - kern().float()).abs().max())
+        bms, by, nbytes, flops = fa_bound(B, S, H, Hk, dh)
+        row = {"kernel": "flash_attention",
+               "shape": f"B={B} S=T={S} H={H} Hk={Hk} dh={dh} bf16 causal",
+               "ms": _graph_ms(kern, reps), "plain_ms": _events_ms(plain,
+                                                                   preps),
+               "library_ms": _graph_ms(lib, reps), "bound_ms": bms,
+               "bound_by": by, "bytes": nbytes, "flops": flops,
+               "sdpa_max_abs_diff": sdpa_err}
+        row["tflops"] = flops / row["ms"] * 1e-9
+        out[("flash_attention", S)] = row
+        emit({"timing": row})
+        del q, k, v
+        torch.cuda.empty_cache()
+    B, T, H, P = 1, 4096, 40, 64
+    args = _rkvwu(gen, B, T, H, P, "near1", dev)
+    bms, by, nbytes, flops = wkv_bound(B, T, H, P)
+    # the plain version at its default chunk of 64 steps: its (c, c, P)
+    # decay tensors take 2.7 GB here (at the model's ssm_chunk of 256 they
+    # would take 10.7 GB each)
+    row = {"kernel": "wkv6", "shape": f"B={B} T={T} H={H} P={P} float32",
+           "ms": _graph_ms(lambda: WK.wkv6(*args), 20),
+           "plain_ms": _events_ms(lambda: WK.wkv6_plain(*args, chunk=64), 3),
+           "plain_chunk": 64, "library_ms": None, "bound_ms": bms,
+           "bound_by": by, "bytes": nbytes, "flops": flops}
+    out[("wkv6", T)] = row
+    emit({"timing": row})
+    del args
+    torch.cuda.empty_cache()
+    return out
+
+
+def _device_split(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: the device time of every
+    kernel and copy it ran (events on the CUDA device only, each counted
+    once), the part of it in K5/K6, and the largest items."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = kern = 0.0
+    top = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        busy += ms
+        if "flash_fwd_kernel" in ev.key or "wkv6_kernel" in ev.key:
+            kern += ms
+        top.append((ms, ev.count, ev.key[:70]))
+    top.sort(reverse=True)
+    return {"device_busy_ms": busy, "k5_k6_ms": kern,
+            "device_events": sum(n for _, n, _ in top),
+            "top": [[round(t, 3), n, k] for t, n, k in top[:8]]}
+
+
+def llm_phase(dev) -> dict:
+    """The published llama3.2-1b and rwkv6-3b on the card: prefill through
+    the kernels (counted), its trace, the plain versions in bf16 and float32,
+    and decode against prefill."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import wkv6 as WK
+    from repro_torch.models import build_model
+
+    launches = {}
+    for name, (B, S) in LLM.items():
+        cfg = get_config(name)
+        model = build_model(cfg, dev)
+        params = model.init(SEED)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                               device=dev)
+        batch = {"tokens": tokens}
+        kname, mod = (("flash_attention", FA) if cfg.family == "dense"
+                      else ("wkv6", WK))
+        model.prefill(params, batch)          # warm-up (cuBLAS, the build)
+        torch.cuda.synchronize()
+        for m in (FA, WK):
+            m.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {**FA.launches, **WK.launches}
+        plain = {**FA.plain_calls, **WK.plain_calls}
+        check(counts[kname] == cfg.n_layers,
+              f"{name}: {counts[kname]} {kname} launches for "
+              f"{cfg.n_layers} layers")
+        check(sum(counts.values()) == cfg.n_layers, f"{name}: {counts}")
+        check(not any(plain.values()), f"plain versions on CUDA: {plain}")
+        check(tuple(logits.shape) == (B, S, cfg.padded_vocab),
+              f"{name}: logits {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+              f"{name}: non-finite logits")
+        launches[kname] = counts[kname]
+        split = _device_split(lambda: model.prefill(params, batch))
+        split["idle_share"] = 1.0 - split["device_busy_ms"] / (secs * 1e3)
+        plain_bf16 = model.prefill(params, batch, plain=True)
+        scale = float(plain_bf16[..., :cfg.vocab].float().abs().max())
+        bf16_rel = float((logits.float() - plain_bf16.float())[
+            ..., :cfg.vocab].abs().max()) / scale
+        del logits, plain_bf16
+
+        m32 = build_model(dataclasses.replace(cfg, dtype="float32"), dev)
+        got = m32.prefill(params, batch)
+        want = m32.prefill(params, batch, plain=True)
+        scale = float(want[..., :cfg.vocab].abs().max())
+        f32_rel = float((got - want)[..., :cfg.vocab].abs().max()) / scale
+        check(f32_rel <= LLM_F32_TOL,
+              f"{name}: float32 prefill kernels vs plain {f32_rel:.3e}")
+        del want
+        cache = m32.init_cache(B, 16)
+        dec = []
+        for t in range(16):
+            lg, cache = m32.decode_step(params, cache,
+                                        {"tokens": tokens[:, t:t + 1]}, t)
+            dec.append(lg[:, 0])
+        dec_rel = float((torch.stack(dec, 1) - got[:, :16])[
+            ..., :cfg.vocab].abs().max()) / scale
+        check(dec_rel <= DECODE_TOL, f"{name}: decode vs prefill "
+                                     f"{dec_rel:.3e}")
+        emit({"llm": {
+            "arch": name, "batch": B, "seq": S, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "prefill_s": secs,
+            "prefill_tokens_per_s": B * S / secs, "launches": counts,
+            "plain_calls_on_cuda": plain, "bf16_kernel_vs_plain_rel": bf16_rel,
+            "f32_kernel_vs_plain_rel": f32_rel, "f32_tol": LLM_F32_TOL,
+            "decode_vs_prefill_rel": dec_rel, "decode_tol": DECODE_TOL,
+            "profile": split}})
+        del params, got, dec, cache, model, m32
+        torch.cuda.empty_cache()
+    return launches
+
+
+def llm_serve_phase(dev) -> None:
+    """``launch.serve.main`` on the card at full width and depth."""
+    import torch
+    from repro_torch.launch import serve
+
+    smi = _smi()
+    argv = ["--no-reduced", "--batch", "4", "--prompt-len", "16", "--gen",
+            "16"]
+    for name in LLM:
+        runs = []
+        for _ in range(2):   # the first one pays the card's first-use costs
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = serve.main(["--arch", name] + argv)
+            secs = time.perf_counter() - t0
+            report = json.loads(
+                buf.getvalue().strip().splitlines()[-1])["serve"]
+            check(rc == 0, f"serve {name} exited {rc}")
+            check(report["shape"] == [4, 32] and not report["reduced"],
+                  f"serve {name}: {report}")
+            check(report["device"].startswith("cuda"), f"serve on {report}")
+            runs.append((secs, report))
+            torch.cuda.empty_cache()
+        emit({"llm_serve": {
+            "arch": name, "argv": argv, "seconds": [r[0] for r in runs],
+            "tokens_per_s": [r[1]["tokens_per_s"] for r in runs],
+            "new_tokens": runs[-1][1]["new_tokens"], "card": smi}})
+
+
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
 # -------------------------------------------------------------------- report
 
 def main(argv=None) -> int:
@@ -709,15 +1093,21 @@ def main(argv=None) -> int:
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
 
-    build_phase()
-    worst = sweep(dev)
-    worst.update(train_sweep(dev))
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        res = fn(*a)
+        emit({"phase": name, "seconds": round(time.perf_counter() - t0, 2)})
+        return res
+
+    phase("build", build_phase)
+    worst = phase("kernels", sweep, dev)
+    worst.update(phase("train kernels", train_sweep, dev))
     _, b_main = _train_setup("cpu")
     m_train = _rows(b_main)
-    times = timing(dev)
-    times.update(train_timing(dev, m_train))
-    launches = serve_phase(dev)
-    train = train_phase(dev)
+    times = phase("timing", timing, dev)
+    times.update(phase("train timing", train_timing, dev, m_train))
+    launches = phase("serve", serve_phase, dev)
+    train = phase("train", train_phase, dev)
     for k, v in train["launches"].items():
         launches[k] = launches.get(k, 0) + v
     t3 = times[("pinn_mlp_fwd2_res", 24, 4, m_train)]
@@ -726,11 +1116,16 @@ def main(argv=None) -> int:
         "step_ms": train["step_ms"], "forward_kernel_ms": t3["ms"],
         "backward_kernel_ms": t4["ms"],
         "other_ms": train["step_ms"] - t3["ms"] - t4["ms"]}})
+    worst.update(phase("lm kernels", lm_sweep, dev))
+    times.update(phase("lm timing", lm_timing, dev))
+    launches.update(phase("llm", llm_phase, dev))
+    phase("llm serve", llm_serve_phase, dev)
 
     kernels = []
     shapes = {"pinn_mlp_fwd1": MAIN, "pinn_mlp_fwd2": MAIN,
               "pinn_mlp_fwd2_res": (24, 4, m_train),
-              "pinn_mlp_bwd2": (24, 4, m_train)}
+              "pinn_mlp_bwd2": (24, 4, m_train),
+              "flash_attention": (4096,), "wkv6": (4096,)}
     for name, shape in shapes.items():
         t = times[(name, *shape)]
         kernels.append({
@@ -738,11 +1133,9 @@ def main(argv=None) -> int:
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
             "shape": t["shape"]})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
+    smi = _smi()
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"kernels": kernels, "nvidia_smi": smi,
@@ -750,7 +1143,7 @@ def main(argv=None) -> int:
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     emit({"kernels": kernels})
-    print(smi.splitlines()[0])
+    print(smi)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

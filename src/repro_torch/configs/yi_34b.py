@@ -1,0 +1,8 @@
+"""yi-34b: llama-arch dense GQA [arXiv:2403.04652]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-34b", family="dense", n_layers=60, d_model=7168,
+    n_heads=56, n_kv_heads=8, head_dim=128, d_ff=20480, vocab=64000,
+    rope_theta=5e6,
+)

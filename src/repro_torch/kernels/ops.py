@@ -32,13 +32,19 @@ Two backward paths (``bwd``):
 
 Inference (no tensor needs a gradient, or grad mode off) runs the
 forward-only kernels K1/K2 and saves nothing.
+
+The LLM kernels' entries keep the reference's signatures:
+:func:`flash_attention` (K5, ``kernels.flash_attention``) and :func:`wkv6`
+(K6, ``kernels.wkv6``); both are forward-only, as there.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import pinn_mlp, ref
+from repro_torch.kernels import wkv6 as _wkv6
 
 
 def width_pad(Ws) -> int:
@@ -203,3 +209,27 @@ def pinn_mlp_forward2_segments(x_segs, Ws, bs, a, act="tanh", d2_dirs=None,
                     d2u[..., ofs:ofs + n, :]))
         ofs += n
     return tuple(out)
+
+
+def flash_attention(q, k, v, causal=True):
+    """Causal GQA flash attention. q: (B,H,S,dh); k/v: (B,Hk,T,dh).
+
+    The kernel reads the (B, S, H, dh) views of these tensors through their
+    strides, so nothing is copied, and it needs neither the reference's
+    padding of dh to 128 lanes nor its matching rescale of q
+    (``ops.py:361-366`` there): the scale is 1/sqrt(dh) directly.  The
+    causal mask is aligned top-left (``kernels.flash_attention``)."""
+    out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal)
+    return out.transpose(1, 2)
+
+
+def wkv6(r, k, v, w, u, chunk=64):
+    """WKV6 linear attention. r/k/v/w: (B, T, H, P); u: (H, P). Returns
+    (B, T, H, P).
+
+    No padding of P: the kernel takes any P up to 128 as it is, so the
+    reference's rule that padded decay channels get w = 1
+    (``ops.py:389-391`` there) has nothing to apply to.  ``chunk`` is the
+    plain version's (CPU tensors); the kernel uses its own."""
+    return _wkv6.wkv6(r, k, v, w, u, chunk=chunk)

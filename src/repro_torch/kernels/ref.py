@@ -5,9 +5,12 @@ takes optional leading batch axes (``...``): x (..., N, d_in), Ws[l]
 (..., in, out), bs[l] (..., out), a (..., L); the stacked subdomain axis is
 one such batch axis, so one call covers every subdomain.  Sums over points
 (the parameter cotangents of :func:`_ref2_bwd`) run over the N axis only,
-one sum per batch entry.
+one sum per batch entry.  :func:`attention_ref` is the copy of the
+reference's attention oracle.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -261,3 +264,23 @@ def pinn_mlp_ref2_vjp(x, Ws, bs, a, act="tanh", d2_dirs=None):
     quad = _act_quad(act)
     outs, res = _ref2_impl(x, Ws, bs, a, quad[:3], d2_dirs, save=True)
     return outs, lambda cts: _ref2_bwd(x, Ws, a, res, quad, d2_dirs, cts)
+
+
+def attention_ref(q, k, v, causal=True):
+    """Plain softmax attention oracle. q: (B,H,S,dh); k/v: (B,Hk,T,dh).
+
+    A copy of the reference's oracle, mask included: it aligns the causal
+    mask BOTTOM-RIGHT (``tril(k=T-S)``), where the flash-attention kernel
+    and the models align it top-left; the two agree only when S == T."""
+    B, H, S, dh = q.shape
+    Hk, T = k.shape[1], k.shape[2]
+    G = H // Hk
+    kk = torch.repeat_interleave(k, G, dim=1)
+    vv = torch.repeat_interleave(v, G, dim=1)
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), kk.float()) / math.sqrt(dh)
+    if causal:
+        mask = torch.tril(torch.ones((S, T), dtype=torch.bool,
+                                     device=q.device), diagonal=T - S)
+        s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p, vv.float()).to(q.dtype)

@@ -1,0 +1,172 @@
+"""RWKV-6 chunked WKV forward (K6): the CUDA kernel's wrapper and plain version.
+
+Counterpart of the reference package's ``kernels/wkv6.py`` Pallas kernel
+``_kernel`` (K6), the hot loop of the rwkv6 prefill.  The kernel is
+``csrc/wkv6.cu`` (its header says what bounds it and how it is laid out).
+This module holds
+
+* :func:`wkv6_chunked` — the chunked WKV6 from a given state, returning the
+  final state: a copy of the reference's ``models/ssm.py::_wkv6_chunked``,
+  including its ``T // chunk`` reshape, so T must be a multiple of
+  ``chunk`` as there; the port's ``models/ssm.py`` takes it from here;
+* :func:`wkv6_plain` — the plain version of K6: :func:`wkv6_chunked` from a
+  zero state, final state dropped;
+* :func:`wkv6` — the wrapper: a CPU tensor goes to the plain version; a
+  CUDA tensor launches the kernel or raises — there is no fallback;
+* ``launches`` / ``plain_calls``: the kernel's launches, and the plain
+  version's calls on CUDA tensors (prefill on a card leaves it at 0).
+
+Layout: r, k, v, w (B, T, H, P) float32 with w in (0, 1), u (H, P); the
+state (B, H, P, P) is keyed [key channel, value channel].
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import native
+
+P_MAX = 128   # widest head the kernel takes (its state is P x P in shared memory)
+
+launches = {"wkv6": 0}
+plain_calls = {"wkv6_plain": 0}
+
+
+def reset_launch_counts() -> None:
+    launches["wkv6"] = 0
+    plain_calls["wkv6_plain"] = 0
+
+
+# ------------------------------------------------------------ plain versions
+
+def wkv6_chunked(r, k, v, w, u, state0, chunk):
+    """Chunked WKV6.  r/k/v: (B, T, H, P); w: per-step decay in (0, 1)
+    (B, T, H, P); u: (H, P) bonus; state0: (B, H, P, P) keyed [key_dim,
+    value_dim].  Returns (y (B, T, H, P), final state)."""
+    B, T, H, P = r.shape
+    nc = T // chunk
+    c = chunk
+    rl, kl, vl, wl = (a.reshape(B, nc, c, H, P) for a in (r, k, v, w))
+    logw = torch.log(wl + 1e-38)
+    seg = torch.cumsum(logw, dim=2)                               # (B,nc,c,H,P)
+
+    # intra-chunk: y_i reads the state BEFORE step-i decay applies, so the
+    # decay of kv_j at step i is prod_{m=j+1}^{i-1} w_m = exp(esc_i - seg_j)
+    esc = seg - logw                                              # exclusive
+    diff = esc[:, :, :, None] - seg[:, :, None, :]                # (B,nc,c,c,H,P)
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
+                      diagonal=-1)
+    dec = torch.where(mask[None, None, :, :, None, None], torch.exp(diff),
+                      0.0)
+    a = torch.einsum("bnihp,bnijhp,bnjhp->bnijh", rl, dec, kl)
+    y_intra = torch.einsum("bnijh,bnjhp->bnihp", a, vl)
+    bonus = torch.einsum("bnchp,hp,bnchp->bnch", rl, u, kl)
+    y_intra = y_intra + bonus[..., None] * vl
+
+    # chunk summary: S_chunk = sum_j decay(j->end) k_j v_j^T
+    decay_to_end = torch.exp(seg[:, :, -1:] - seg)                # (B,nc,c,H,P)
+    s_chunk = torch.einsum("bnchp,bnchq->bnhpq", kl * decay_to_end, vl)
+    chunk_decay = torch.exp(seg[:, :, -1])                        # (B,nc,H,P)
+
+    s, states_in = state0, []
+    for n in range(nc):
+        states_in.append(s)
+        s = s * chunk_decay[:, n, ..., None] + s_chunk[:, n]
+    states_in = torch.stack(states_in, dim=1)                     # (B,nc,H,P,P)
+    decay_from_start = torch.exp(seg - logw)      # decay BEFORE step i applies
+    y_inter = torch.einsum("bnchp,bnhpq->bnchq", rl * decay_from_start,
+                           states_in)
+    y = (y_intra + y_inter).reshape(B, T, H, P)
+    return y, s
+
+
+def wkv6_plain(r, k, v, w, u, *, chunk=64):
+    """Plain version of K6 on the wrapper's inputs: :func:`wkv6_chunked`
+    from a zero state with ``min(chunk, T)`` steps per chunk (as the
+    reference's ``ops.wkv6``, T must then be a multiple of it)."""
+    if r.is_cuda:
+        plain_calls["wkv6_plain"] += 1
+    B, T, H, P = r.shape
+    state0 = r.new_zeros((B, H, P, P))
+    return wkv6_chunked(r, k, v, w, u, state0, max(1, min(chunk, T)))[0]
+
+
+# ------------------------------------------------------------------ wrapper
+
+def wkv6(r, k, v, w, u, *, chunk=64):
+    """K6: y (B, T, H, P) of the WKV6 recurrence from a zero state (the
+    final state is not returned).
+
+    CPU tensors take the plain version (``chunk`` is its chunk); CUDA
+    tensors launch the kernel (any T; its chunk of 32 steps is its own,
+    chunking being exact algebra) or raise."""
+    if r.device.type == "cpu":
+        return wkv6_plain(r, k, v, w, u, chunk=chunk)
+    return _launch(r, k, v, w, u)
+
+
+# ------------------------------------------------------------------- launch
+
+@functools.cache
+def _library():
+    lib = native.load("wkv6")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.wkv6_fwd.argtypes = [p] * 6 + [ll] * 6 + [i] * 4 + [p]
+    lib.wkv6_fwd.restype = i
+    lib.wkv6_error_string.argtypes = [i]
+    lib.wkv6_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(r, k, v, w, u):
+    """Raise on inputs the kernel does not take."""
+    name = "wkv6"
+    if r.device.type != "cuda":
+        raise ValueError(f"{name}: the CUDA path needs CUDA tensors, got "
+                         f"{r.device}")
+    if r.dim() != 4:
+        raise ValueError(f"{name}: r must be (B, T, H, P), got "
+                         f"{tuple(r.shape)}")
+    B, T, H, P = r.shape
+    for n, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
+        if t.device != r.device:
+            raise ValueError(f"{name}: {n} on {t.device}, r on {r.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {n} is {t.dtype}; the kernel takes "
+                            "float32")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise NotImplementedError(f"{name}: the kernel is forward-only "
+                                      "(prefill); it has no autograd")
+    for n, t in (("k", k), ("v", v), ("w", w)):
+        if t.shape != r.shape or t.stride() != r.stride():
+            raise ValueError(f"{name}: {n} {tuple(t.shape)} / {t.stride()} "
+                             f"must match r {tuple(r.shape)} / {r.stride()}")
+    if r.stride(-1) != 1:
+        raise ValueError(f"{name}: the head dim P must be contiguous")
+    if tuple(u.shape) != (H, P) or not u.is_contiguous():
+        raise ValueError(f"{name}: u must be contiguous (H, P) = {(H, P)}, "
+                         f"got {tuple(u.shape)}")
+    if not 1 <= P <= P_MAX:
+        raise ValueError(f"{name}: head dim P = {P} (at most {P_MAX})")
+
+
+def _launch(r, k, v, w, u):
+    _check(r, k, v, w, u)
+    B, T, H, P = r.shape
+    y = torch.empty_like(r)
+    if B == 0 or T == 0 or H == 0:
+        return y
+    lib = _library()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.wkv6_fwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), y.data_ptr(), *r.stride()[:3], *y.stride()[:3],
+            B, T, H, P, stream)
+    if rc != 0:
+        msg = lib.wkv6_error_string(rc).decode()
+        raise RuntimeError(f"wkv6: kernel launch failed ({rc}: {msg})")
+    launches["wkv6"] += 1
+    return y

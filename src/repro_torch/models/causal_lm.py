@@ -1,0 +1,143 @@
+"""Decoder-only LM assembly, generic over per-family block definitions.
+
+Counterpart of the reference package's ``models/causal_lm.py``.  A family
+registers a :class:`BlockDef` (per-layer init / apply / cache init).  The
+assembly provides the embedding, the loop over the stacked layers, the final
+norm and the LM head, and two entry points: ``prefill`` (the full causal
+forward; on a card every attention layer launches the flash-attention kernel
+and every RWKV time-mix layer the WKV6 kernel) and ``decode_step`` (one token
+against a cache, plain torch on every device, as in the reference, where no
+Pallas kernel serves decode).
+
+The model lives on one device, ``cuda`` unless the caller asks for the CPU
+(``build_model(cfg, device="cpu")``); its params and caches are made there.
+Not ported yet (ROADMAP Queue 1): ``loss`` with the fused head
+cross-entropy, the ``logical`` / ``*_specs`` sharding trees, the deepseek
+``prelude`` of dense layers and the VLM patch frontend.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+
+
+@dataclass(frozen=True)
+class BlockDef:
+    init: Callable          # (gen, cfg) -> layer params
+    apply: Callable         # (cfg, lp, x, lc, ctx) -> (y, new_lc)
+    init_cache: Callable | None = None   # (cfg, B, T, dtype, device) -> per-layer cache
+
+
+BLOCKS: dict[str, BlockDef] = {}
+
+
+def register_block(family: str, block: BlockDef):
+    BLOCKS[family] = block
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+class CausalLM:
+    """Pure-function model bundle for one config on one device."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        if cfg.family not in BLOCKS:
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family!r} family is not ported yet "
+                f"(ROADMAP Queue 1, item 14; ported: {', '.join(BLOCKS)})")
+        self.cfg = cfg
+        self.block = BLOCKS[cfg.family]
+        self.device = resolve_device(device)
+
+    def _generator(self, gen) -> torch.Generator:
+        if isinstance(gen, torch.Generator):
+            return gen
+        return torch.Generator(device=self.device).manual_seed(
+            0 if gen is None else int(gen))
+
+    # ------------------------------------------------------------------ params
+    def init(self, gen=None) -> dict:
+        """Params drawn from ``gen`` (a ``torch.Generator`` on the model's
+        device, or an int seed for one): the reference's tree, keys and
+        shapes, with float32 leaves."""
+        cfg = self.cfg
+        g = self._generator(gen)
+        p = {
+            "embed": L.init_embedding(g, cfg.padded_vocab, cfg.d_model),
+            "layers": L.stack_init(lambda gg: self.block.init(gg, cfg), g,
+                                   cfg.n_layers),
+            "final_norm": L.ones(g, (cfg.d_model,)),
+        }
+        if not cfg.tie_embeddings:
+            p["head"] = L.init_lm_head(g, cfg.d_model, cfg.padded_vocab)
+        return p
+
+    # ------------------------------------------------------------------- cache
+    def init_cache(self, batch_size: int, seq_len: int):
+        """Zero per-layer caches, stacked on a leading L axis (None for a
+        family without one)."""
+        if self.block.init_cache is None:
+            return None
+        one = self.block.init_cache(self.cfg, batch_size, seq_len,
+                                    _dtype(self.cfg), self.device)
+        return {k: t.new_zeros((self.cfg.n_layers,) + t.shape)
+                for k, t in one.items()}
+
+    # ----------------------------------------------------------------- forward
+    def _hidden(self, params, batch, cache=None, pos=None, plain=False):
+        """Backbone up to (and including) the final norm. Returns (x, new_cache)."""
+        cfg = self.cfg
+        dtype = _dtype(cfg)
+        x = L.embed(params["embed"], batch["tokens"], dtype)
+        B, S = x.shape[:2]
+        if pos is None:
+            positions = torch.arange(S, device=x.device)[None, :]
+        else:
+            positions = torch.full((B, 1), pos, dtype=torch.int64,
+                                   device=x.device)
+        ctx = dict(positions=positions, pos=pos, q_offset=0,
+                   mode="decode" if pos is not None else "full", plain=plain)
+
+        def block_fn(lp, h, lc):
+            return self.block.apply(cfg, lp, h, lc, ctx)
+
+        x, new_cache = L.scan_layers(block_fn, params["layers"], x, cache)
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return x, new_cache
+
+    def forward(self, params, batch, cache=None, pos=None, *, plain=False):
+        """batch: {"tokens": (B, S)}.
+
+        cache/pos given  -> decode mode (S == 1), returns (logits, new_cache)
+        cache/pos absent -> full causal forward, returns (logits, None)
+
+        ``plain=True`` runs the kernels' plain versions on CUDA tensors too
+        (the card check compares the two paths); CPU tensors always take
+        them."""
+        x, nc = self._hidden(params, batch, cache, pos, plain)
+        nv = self.cfg.vocab if self.cfg.padded_vocab != self.cfg.vocab \
+            else None
+        if self.cfg.tie_embeddings:
+            logits = L.unembed(params["embed"], x, nv)
+        else:
+            logits = L.lm_head(params["head"], x, nv)
+        return logits, nc
+
+    # ------------------------------------------------------------ entry points
+    @torch.no_grad()
+    def prefill(self, params, batch, *, plain=False):
+        logits, _ = self.forward(params, batch, plain=plain)
+        return logits
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, batch, pos):
+        """One-token step against a pre-existing cache. tokens: (B, 1)."""
+        return self.forward(params, batch, cache=cache, pos=pos)

@@ -5,7 +5,12 @@ NVIDIA card and skips without one; on a card run
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerance: rtol = atol = 1e-5, float32 kernel against the float32 plain
-version on the same card (the sums run in another order).
+version on the same card (the sums run in another order).  The LLM kernels
+(K5 flash attention, K6 WKV6) use the card check's bounds: K5 2e-5 in
+float32 and 1e-2 with both outputs in bf16 (one bf16 rounding of values
+that agree to float32 precision), K6 2e-4 (the reference's own bound,
+``tests/test_kernels_wkv6.py``: its exponentials and cumulative sums run
+in another order).
 """
 import numpy as np
 import pytest
@@ -14,7 +19,9 @@ import torch
 from repro_torch.core import CartesianDecomposition, us_map_decomposition
 from repro_torch.core.nets import MLPConfig, SubdomainModelConfig, stacked_init
 from repro_torch.core.pdes import Burgers1D, HeatConduction2D
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, pinn_mlp
+from repro_torch.kernels import wkv6 as WK
 from repro_torch.serve import FieldBundle, FieldEngine
 
 pytestmark = pytest.mark.cuda
@@ -241,3 +248,118 @@ def test_autograd_boundary_on_card_matches_cpu(dev, bwd):
             outs, ins, [c.to(d) for c in cts])]
     for got, want in zip(grads[str(dev)], grads["cpu"]):
         _leaf_close(got, want)
+
+
+# ------------------------------------------------------------ LLM kernels
+
+def _qkv(dev, B, S, T, H, Hk, dh, dtype, seed, heads_first=False):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, S, H, dh), generator=g)
+    k, v = (torch.randn((B, T, Hk, dh), generator=g) for _ in range(2))
+    out = [t.to(dev, dtype) for t in (q, k, v)]
+    if heads_first:   # (B, H, S, dh) storage, passed as (B, S, H, dh) views
+        out = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in out]
+    return out
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1e-2)], ids=str)
+@pytest.mark.parametrize("B,S,T,H,Hk,dh,causal", [
+    (2, 37, 37, 8, 2, 64, True), (1, 130, 130, 4, 1, 128, True),
+    (1, 64, 64, 2, 2, 100, True), (2, 1, 1, 4, 4, 16, True),
+    (1, 50, 130, 4, 2, 64, True), (1, 130, 50, 4, 2, 64, True),
+    (2, 70, 200, 4, 1, 64, False)])
+@pytest.mark.parametrize("heads_first", [False, True])
+def test_flash_attention_matches_plain_on_card(dev, B, S, T, H, Hk, dh,
+                                               causal, dtype, tol,
+                                               heads_first):
+    q, k, v = _qkv(dev, B, S, T, H, Hk, dh, dtype, seed=S * T + dh,
+                   heads_first=heads_first)
+    before = FA.launches["flash_attention"]
+    got = FA.flash_attention(q, k, v, causal=causal)
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.launches["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.stride() == q.stride()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_refuses_what_it_does_not_take(dev):
+    q, k, v = _qkv(dev, 1, 8, 8, 2, 2, 16, torch.float32, 0)
+    with pytest.raises(TypeError):
+        FA.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention(*_qkv(dev, 1, 8, 8, 2, 2, 160, torch.float32, 0))
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention(q[..., ::2], k[..., ::2], v[..., ::2])
+    with pytest.raises(NotImplementedError):
+        FA.flash_attention(q.requires_grad_(), k, v)
+
+
+def _rkvwu(dev, B, T, H, P, w_mode, seed):
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn((B, T, H, P), generator=g) for _ in range(3))
+    if w_mode == "uniform":
+        w = 0.2 + 0.78 * torch.rand((B, T, H, P), generator=g)
+    elif w_mode == "strong":
+        w = torch.full((B, T, H, P), 0.05)
+    else:   # the init's decay_bias = -6: w = exp(-e^-6), near 1
+        w = torch.exp(-torch.exp(-6.0 + 0.01 * torch.randn((B, T, H, P),
+                                                           generator=g)))
+    u = torch.randn((H, P), generator=g)
+    return [t.to(dev) for t in (r, k, v, w, u)]
+
+
+@pytest.mark.parametrize("w_mode", ["uniform", "strong", "near1"])
+@pytest.mark.parametrize("B,T,H,P,chunk", [
+    (2, 17, 3, 16, 17), (1, 256, 2, 64, 64), (1, 100, 2, 128, 50),
+    (2, 1, 2, 64, 1)])
+def test_wkv6_matches_plain_on_card(dev, B, T, H, P, chunk, w_mode):
+    r, k, v, w, u = _rkvwu(dev, B, T, H, P, w_mode, seed=T * P)
+    before = WK.launches["wkv6"]
+    got = WK.wkv6(r, k, v, w, u)
+    want = WK.wkv6_plain(r, k, v, w, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert WK.launches["wkv6"] == before + 1
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_wkv6_refuses_what_it_does_not_take(dev):
+    r, k, v, w, u = _rkvwu(dev, 1, 8, 2, 16, "uniform", 0)
+    with pytest.raises(TypeError):
+        WK.wkv6(r.double(), k, v, w, u)
+    with pytest.raises(ValueError, match="P = 160"):
+        WK.wkv6(*_rkvwu(dev, 1, 8, 1, 160, "uniform", 0))
+    with pytest.raises(ValueError, match="must match"):
+        WK.wkv6(r, k.transpose(1, 2).contiguous().transpose(1, 2), v, w, u)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-3b"])
+def test_reduced_prefill_on_card_runs_the_kernels(dev, arch):
+    """The reduced model's prefill on the card launches K5 (or K6) once per
+    layer, runs no plain version on a CUDA tensor, and its float32 logits
+    match the plain path on the card within 1e-4 of max |logit|."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    model = build_model(cfg, dev)
+    params = model.init(0)
+    tokens = torch.randint(0, cfg.vocab, (2, 32),
+                           generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tokens.to(dev)}
+    FA.reset_launch_counts()
+    WK.reset_launch_counts()
+    got = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    name, mod = (("flash_attention", FA) if cfg.family == "dense"
+                 else ("wkv6", WK))
+    assert mod.launches[name] == cfg.n_layers
+    assert not any(FA.plain_calls.values()) and \
+        not any(WK.plain_calls.values())
+    want = model.prefill(params, batch, plain=True)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
