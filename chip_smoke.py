@@ -7,8 +7,11 @@ Run from the root of a checkout.  Phases, in order; a failure in any of them
 ends the run with a non-zero exit code and no result line:
 
 1. **build** — compile every CUDA source under ``src/repro_torch/csrc/``
-   (one ``nvcc`` per source, all started together) and print the seconds
-   and each instantiation's registers and spills;
+   (one ``nvcc`` per source, all started together) and print the seconds,
+   each instantiation's registers and spills, and per kernel the count of
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in the built
+   library's SASS (``cuobjdump -sass``): the bf16 K5 kernel must hold
+   ``HGMMA``, and ``UTMALDG`` in its TMA instantiations;
 2. **kernels** — hold each forward kernel (K1/K2) against its plain PyTorch
    version on the card (float32, rtol = atol = 1e-5) over activations
    tanh/sin/cos, d_in 1-3, widths 20/24/40/80/128 at depths 2-5, d2
@@ -38,14 +41,17 @@ ends the run with a non-zero exit code and no result line:
    and on the CPU are held together, and the ms per training step is split
    into forward kernel, backward kernel and everything else;
 6. **lm kernels** — hold K5 (flash attention) against its plain version on
-   the card: float32 (rtol = atol = 2e-5) and bf16 (both outputs bf16,
-   rtol = atol = 1e-2), heads H/Hk 32/8, 8/8, 4/1, head dims 64, 128, 100,
-   S = T in {1, 37, 64, 130, 2048}, and S != T causal (top-left) and not
-   causal, each in the model's (B, S, H, dh) layout and as (B, H, S, dh)
-   storage; and K6 (WKV6) against its plain version (rtol = atol = 2e-4,
-   the reference's bound): P 16, 64, 128, T in {1, 17, 256, 1000}, w from
-   U(0.2, 0.98), a strong decay w = 0.05 and a near-1 decay w ~
-   exp(-e^-6) (the init's decay_bias);
+   the card: float32 (rtol = atol = 2e-5, the CUDA-core kernel) and bf16
+   (both outputs bf16, rtol = atol = 1e-2, the tensor-core kernel: by TMA
+   at head dims 64 and 128, by element loads at 100), heads H/Hk 32/8,
+   8/8, 4/1, head dims 64, 128, 100, S = T in {1, 37, 64, 130, 200, 333,
+   2048}, and S != T causal (top-left) and not causal, each in the model's
+   (B, S, H, dh) layout and as (B, H, S, dh) storage, every case counted on
+   the device kernel of its dtype; and K6 (WKV6: a chunk, a scan and an
+   output kernel) against its plain version (rtol = atol = 2e-4, the
+   reference's bound): P 16, 64, 128, T in {1, 5, 17, 31, 33, 256, 1000}
+   (B = 2) and T = 99 at B = 3, w from U(0.2, 0.98), a strong decay
+   w = 0.05 and a near-1 decay w ~ exp(-e^-6) (the init's decay_bias);
 7. **lm timing** — K5 at llama3.2-1b's per-layer prefill shape (B = 1,
    H = 32, Hk = 8, dh = 64, bf16, causal) at S = T = 4096 and 32768, beside
    its plain version and PyTorch's ``scaled_dot_product_attention`` on the
@@ -55,10 +61,13 @@ ends the run with a non-zero exit code and no result line:
 8. **llm** — llama3.2-1b and rwkv6-3b at their published width and depth,
    weights drawn from a seed on the card: prefill (B = 2, S = 1024 /
    B = 1, T = 1024) through the kernels with the launch counts set to 0 just
-   before and read just after (exactly n_layers K5 or K6 launches, no plain
-   version on a CUDA tensor), a profiler trace of it, the same prefill
-   through the plain versions in bf16 (difference printed) and in a float32
-   copy of the config (held at LLM_F32_TOL of max |logit|), and 16 decode
+   before and read just after (exactly n_layers K5 or K6 wrapper calls,
+   each on its device kernels: the bf16 K5 kernel, or K6's chunk, scan
+   and output kernels; no plain version on a CUDA tensor), a profiler
+   trace of it (the device kernels' share found by their names), the same
+   prefill through the plain versions in bf16 (difference printed) and in
+   a float32 copy of the config (held at LLM_F32_TOL of max |logit|; for
+   llama through the float32 K5 kernel, one launch per layer), and 16 decode
    steps held against the float32 prefill (2e-3 of max |logit|, the
    reference's bound);
 9. **llm serve** — ``repro_torch.launch.serve.main`` serves each of them at
@@ -111,8 +120,15 @@ SOURCES = {"pinn_mlp_fwd1": "src/repro_torch/csrc/pinn_mlp_fwd.cu",
            "pinn_mlp_fwd2": "src/repro_torch/csrc/pinn_mlp_fwd.cu",
            "pinn_mlp_fwd2_res": "src/repro_torch/csrc/pinn_mlp_fwd.cu",
            "pinn_mlp_bwd2": "src/repro_torch/csrc/pinn_mlp_bwd.cu",
-           "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+           "flash_attention": "src/repro_torch/csrc/flash_attention_sm90.cu",
            "wkv6": "src/repro_torch/csrc/wkv6.cu"}
+# device kernels behind the K5 / K6 wrappers (launch counters, and the
+# names by which the profiler split finds them)
+DEVICE_KERNELS = {"flash_attention_sm90": "flash_fwd_sm90_kernel",
+                  "flash_attention_f32": "flash_fwd_kernel",
+                  "wkv6_chunk": "wkv6_chunk_kernel",
+                  "wkv6_scan": "wkv6_scan_kernel",
+                  "wkv6_out": "wkv6_out_kernel"}
 REPLACES = {"pinn_mlp_fwd1": "src/repro/kernels/pinn_mlp.py:82",
             "pinn_mlp_fwd2": "src/repro/kernels/pinn_mlp.py:148",
             "pinn_mlp_fwd2_res": "src/repro/kernels/pinn_mlp.py:166",
@@ -180,6 +196,63 @@ def build_phase() -> None:
                       "instantiations": len(regs),
                       "registers_max": max(regs, default=None),
                       "spill_bytes_max": max(spills, default=None)})
+    sass = _sass_counts(info)
+    emit({"sass": sass})
+    sm90 = {k: v for k, v in sass.items() if "flash_fwd_sm90_kernel" in k}
+    check(len(sm90) == 4 and all(v["HGMMA"] > 0 for v in sm90.values()),
+          f"bf16 K5 kernel without wgmma: {sm90}")
+    # the TMA instantiations (template flag true) load by TMA, the others not
+    tma = lambda k: re.search(r"(true|\(bool\)1)>$", k) is not None
+    check(sum(map(tma, sm90)) == 2 and
+          all((v["UTMALDG"] > 0) == tma(k) for k, v in sm90.items()),
+          f"bf16 K5 TMA instantiations without TMA loads: {sm90}")
+
+
+def _sass_counts(info) -> dict:
+    """Each kernel of the built libraries: its count of HGMMA (wgmma) and
+    UTMALDG (TMA load) instructions in the SASS."""
+    cuda = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    procs = {}   # all at once, each into a file of its own
+    for stem, lib in sorted(info.items()):
+        out = tempfile.TemporaryFile("w+")
+        procs[stem] = (out, subprocess.Popen(
+            [os.path.join(cuda, "bin", "cuobjdump"), "-sass", lib["path"]],
+            stdout=out, text=True))
+    counts = {}
+    for stem, (out, proc) in procs.items():
+        check(proc.wait(timeout=300) == 0, f"cuobjdump -sass failed on {stem}")
+        out.seek(0)
+        sass = out.read()
+        out.close()
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :", 1)[1].strip()
+                counts[fn] = {"library": stem, "HGMMA": 0, "UTMALDG": 0}
+            elif fn is not None:
+                for op in ("HGMMA", "UTMALDG"):
+                    counts[fn][op] += op in line
+    names = subprocess.run([os.path.join(cuda, "bin", "cu++filt")],
+                           input="\n".join(counts), capture_output=True,
+                           text=True, check=True, timeout=60).stdout
+    names = [_without_args(n) for n in names.splitlines()]
+    check(len(names) == len(counts) == len(set(names)),
+          f"cu++filt output {names}")
+    return dict(zip(names, counts.values()))
+
+
+def _without_args(name: str) -> str:
+    """A demangled kernel name without ``void``, the anonymous namespace
+    and its argument list, keeping its template arguments (which cu++filt
+    may print as ``(int)64, (bool)1``)."""
+    name = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::", "",
+                  name.strip())
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0:
+            return name[:i] if name.endswith(")") else name
+    return name
 
 
 # ------------------------------------------------------------------- kernels
@@ -792,7 +865,8 @@ def _rkvwu(gen, B, T, H, P, w_mode, dev):
 
 
 def lm_sweep(dev) -> dict:
-    """K5 and K6 against their plain versions on the card."""
+    """K5 and K6 against their plain versions on the card, each case
+    counted on the device kernels it must launch."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import wkv6 as WK
@@ -802,9 +876,11 @@ def lm_sweep(dev) -> dict:
     cases = []
     for H, Hk in ((32, 8), (8, 8), (4, 1)):
         for dh in (64, 128, 100):
-            cases += [(H, Hk, dh, n, n, True) for n in (1, 37, 64, 130, 2048)]
+            cases += [(H, Hk, dh, n, n, True)
+                      for n in (1, 37, 64, 130, 200, 333, 2048)]
     cases += [(32, 8, dh, S, T, c) for dh in (64, 128, 100)
-              for S, T in ((50, 130), (130, 50), (1, 64)) for c in (True, False)]
+              for S, T in ((50, 130), (130, 50), (1, 64), (200, 333),
+                           (333, 200)) for c in (True, False)]
     n_fa = 0
     for H, Hk, dh, S, T, causal in cases:
         for dname in ("float32", "bfloat16"):
@@ -812,9 +888,18 @@ def lm_sweep(dev) -> dict:
                 B = 1 if max(S, T) > 1000 else 2
                 q, k, v = _qkv(gen, B, S, T, H, Hk, dh, getattr(torch, dname),
                                heads_first, dev)
+                before = {**FA.launches, **FA.producers}
                 got = FA.flash_attention(q, k, v, causal=causal)
                 want = FA.flash_attention_plain(q, k, v, causal=causal)
                 torch.cuda.synchronize()
+                after = {**FA.launches, **FA.producers}
+                kern = ("flash_attention_sm90" if dname == "bfloat16"
+                        else "flash_attention_f32")
+                ran = {n for n in after if after[n] != before[n]}
+                want_ran = {"flash_attention", kern}
+                if dname == "bfloat16":   # TMA where dh is a multiple of 8
+                    want_ran.add("tma" if dh % 8 == 0 else "loads")
+                check(ran == want_ran, f"K5 {dname} dh{dh} launched {ran}")
                 check(got.stride() == q.stride(), "output layout")
                 err = _allclose(got, want, FA_TOL[dname])
                 worst[dname] = max(worst[dname], err)
@@ -823,17 +908,24 @@ def lm_sweep(dev) -> dict:
     emit({"k5_sweep_cases": n_fa, "tol": FA_TOL, "max_abs_err": dict(worst)})
 
     wworst, n_wkv = 0.0, 0
+    wcases = [(2, T, chunk) for T, chunk in ((1, 1), (5, 5), (17, 17),
+                                             (31, 31), (33, 11), (256, 64),
+                                             (1000, 50))]
+    wcases.append((3, 99, 33))
     for P in (16, 64, 128):
-        for T, chunk in ((1, 1), (17, 17), (256, 64), (1000, 50)):
+        for B, T, chunk in wcases:
             for w_mode in ("uniform", "strong", "near1"):
-                args = _rkvwu(gen, 2, T, 4, P, w_mode, dev)
+                args = _rkvwu(gen, B, T, 4, P, w_mode, dev)
+                before = dict(WK.launches)
                 got = WK.wkv6(*args)
                 want = WK.wkv6_plain(*args, chunk=chunk)
                 torch.cuda.synchronize()
+                check(all(WK.launches[n] == before[n] + 1 for n in before),
+                      f"K6 launches {before} -> {WK.launches}")
                 err = _allclose(got, want, WKV_TOL)
                 wworst = max(wworst, err)
                 n_wkv += 1
-                print(f"K6 P{P} T{T} w={w_mode} abs {err:.1e}")
+                print(f"K6 P{P} B{B} T{T} w={w_mode} abs {err:.1e}")
     emit({"k6_sweep_cases": n_wkv, "tol": WKV_TOL, "max_abs_err": wworst})
     return {"flash_attention": max(worst.values()), "wkv6": wworst}
 
@@ -914,7 +1006,10 @@ def lm_timing(dev) -> dict:
            "ms": _graph_ms(lambda: WK.wkv6(*args), 20),
            "plain_ms": _events_ms(lambda: WK.wkv6_plain(*args, chunk=64), 3),
            "plain_chunk": 64, "library_ms": None, "bound_ms": bms,
-           "bound_by": by, "bytes": nbytes, "flops": flops}
+           "bound_by": by, "bytes": nbytes, "flops": flops,
+           "device_kernel_ms": {
+               n: t for n, t in _device_split(
+                   lambda: WK.wkv6(*args))["kernel_ms"].items() if t}}
     out[("wkv6", T)] = row
     emit({"timing": row})
     del args
@@ -925,7 +1020,8 @@ def lm_timing(dev) -> dict:
 def _device_split(fn) -> dict:
     """One call of ``fn`` under torch.profiler: the device time of every
     kernel and copy it ran (events on the CUDA device only, each counted
-    once), the part of it in K5/K6, and the largest items."""
+    once), the part of it in each K5/K6 device kernel (found by its name in
+    DEVICE_KERNELS), and the largest items."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -935,19 +1031,21 @@ def _device_split(fn) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    busy = kern = 0.0
+    busy = 0.0
+    kern = dict.fromkeys(DEVICE_KERNELS, 0.0)
     top = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
             continue
         ms = ev.self_device_time_total / 1e3
         busy += ms
-        if "flash_fwd_kernel" in ev.key or "wkv6_kernel" in ev.key:
-            kern += ms
+        for name, sym in DEVICE_KERNELS.items():
+            if re.search(rf"\b{sym}\b", ev.key):
+                kern[name] += ms
         top.append((ms, ev.count, ev.key[:70]))
     top.sort(reverse=True)
-    return {"device_busy_ms": busy, "k5_k6_ms": kern,
-            "device_events": sum(n for _, n, _ in top),
+    return {"device_busy_ms": busy, "k5_k6_ms": sum(kern.values()),
+            "kernel_ms": kern, "device_events": sum(n for _, n, _ in top),
             "top": [[round(t, 3), n, k] for t, n, k in top[:8]]}
 
 
@@ -984,18 +1082,23 @@ def llm_phase(dev) -> dict:
         secs = time.perf_counter() - t0
         counts = {**FA.launches, **WK.launches}
         plain = {**FA.plain_calls, **WK.plain_calls}
-        check(counts[kname] == cfg.n_layers,
-              f"{name}: {counts[kname]} {kname} launches for "
-              f"{cfg.n_layers} layers")
-        check(sum(counts.values()) == cfg.n_layers, f"{name}: {counts}")
+        # one wrapper call per layer, each on the bf16 K5 kernel or on
+        # K6's chunk, scan and output kernels, and nothing else
+        device = (("flash_attention_sm90",) if kname == "flash_attention"
+                  else ("wkv6_chunk", "wkv6_scan", "wkv6_out"))
+        expect = {n: cfg.n_layers if n in (kname, *device) else 0
+                  for n in counts}
+        check(counts == expect, f"{name}: launches {counts}, want {expect}")
         check(not any(plain.values()), f"plain versions on CUDA: {plain}")
         check(tuple(logits.shape) == (B, S, cfg.padded_vocab),
               f"{name}: logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
               f"{name}: non-finite logits")
-        launches[kname] = counts[kname]
+        launches.update({n: counts[n] for n in (kname, *device)})
         split = _device_split(lambda: model.prefill(params, batch))
         split["idle_share"] = 1.0 - split["device_busy_ms"] / (secs * 1e3)
+        check(all(split["kernel_ms"][n] > 0 for n in device),
+              f"{name}: the trace shows no time in {device}: {split}")
         plain_bf16 = model.prefill(params, batch, plain=True)
         scale = float(plain_bf16[..., :cfg.vocab].float().abs().max())
         bf16_rel = float((logits.float() - plain_bf16.float())[
@@ -1003,7 +1106,11 @@ def llm_phase(dev) -> dict:
         del logits, plain_bf16
 
         m32 = build_model(dataclasses.replace(cfg, dtype="float32"), dev)
+        FA.reset_launch_counts()
         got = m32.prefill(params, batch)
+        check(kname != "flash_attention" or
+              FA.launches["flash_attention_f32"] == cfg.n_layers,
+              f"{name}: float32 prefill launches {FA.launches}")
         want = m32.prefill(params, batch, plain=True)
         scale = float(want[..., :cfg.vocab].abs().max())
         f32_rel = float((got - want)[..., :cfg.vocab].abs().max()) / scale
@@ -1131,6 +1238,8 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
+            "device_kernels": {n: launches[n] for n in DEVICE_KERNELS
+                               if n.startswith(name) and n in launches},
             "max_abs_err": worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),

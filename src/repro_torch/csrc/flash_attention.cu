@@ -1,5 +1,6 @@
 // Causal GQA flash-attention forward for Hopper (sm_90a), CUDA C++ on the
-// CUDA cores.
+// CUDA cores: the float32 kernel.  bf16 inputs go to the tensor-core
+// kernel of csrc/flash_attention_sm90.cu instead.
 //
 // Replaces the reference package's Pallas TPU kernel
 //   K5  src/repro/kernels/flash_attention.py::_kernel  (launched by
@@ -15,7 +16,7 @@
 // the two agree only when S == T).  Scores, the running max m, the running
 // sum l and the accumulator are float32; masked scores are -1e30 (the TPU
 // kernel's NEG_INF, not -inf, so exp(m_prev - m_new) stays finite); the
-// output is acc / max(l, 1e-30), cast to the input type (float32 or bf16).
+// output is acc / max(l, 1e-30).
 //
 // Design.  Grid = (query tiles, H, B); one block of 128 threads owns
 // kBQ = 64 query rows of one head and walks the kv tiles of kBK = 64 rows
@@ -42,22 +43,18 @@
 //
 // What bounds it on this card.  The work is 4 * B * H * dh FLOP per visible
 // (query, key) pair: 2 for QK^T, 2 for PV; causal halves the pairs.  At
-// llama3.2-1b's prefill (H = 32, Hk = 8, dh = 64, bf16) the bytes are tiny
-// next to it: q, k, v read once and o written once are 10 KB per token and
-// layer, against 4 * H * dh * (s + 1) FLOP for the token at position s,
-// about 1,600 FLOP per byte at S = 4096, far above the ~295 at which the
-// card's bf16 tensor cores and not its memory set the limit.  So the
-// operations bound it, at the bf16 tensor-core rate (989 TFLOP/s) for a
-// kernel taking bf16 inputs.  This first version does the products with plain IEEE
-// float32 FMAs on the CUDA cores (67 TFLOP/s at most), so it cannot come
-// within 15x of that bound; wgmma on bf16 tiles fed by TMA is the first
-// thing a later PR changes (PERF.md has its time against the bound and
-// against PyTorch's scaled_dot_product_attention).
+// llama3.2-1b's shape (H = 32, Hk = 8, dh = 64) the bytes are tiny next
+// to it: q, k, v read once and o written once are 20 KB per token and
+// layer in float32, against 4 * H * dh * (s + 1) FLOP for the token at
+// position s, about 800 FLOP per byte at S = 4096.  So the operations bound
+// it.  It does the products with plain IEEE float32 FMAs on the CUDA cores
+// (67 TFLOP/s at most): a TF32 product on the tensor cores keeps about
+// three decimal digits, and this path is held to 2e-5 against the float32
+// plain version and to 1e-4 of max |logit| over a float32 prefill.
 //
 // C interface (bound with ctypes): flash_attention_fwd(...) launches on the
 // given stream, does not synchronise, and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -69,10 +66,10 @@ constexpr int kLP = kBK + 4;   // row stride of the P tile (floats)
 constexpr float kNegInf = -1e30f;
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
   long long q_sb, q_ss, q_sh;  // element strides; the head dim is contiguous
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -80,24 +77,6 @@ struct Params {
   int S, T, G, dh, causal;
   float scale;
 };
-
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as a cast in torch
-}
 
 __device__ __forceinline__ float comp(const float4& a, int e) {
   return e == 0 ? a.x : e == 1 ? a.y : e == 2 ? a.z : a.w;
@@ -110,7 +89,7 @@ constexpr size_t smem_bytes() {
           (size_t)kBQ * kLP) * sizeof(float);
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   constexpr int LQ = DP + 4;
   constexpr int NC = DP / 32;  // float4 output column groups per thread
@@ -124,14 +103,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / p.G;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* q = p.q + b * p.q_sb + h * p.q_sh;
+  const float* k = p.k + b * p.k_sb + hk * p.k_sh;
+  const float* v = p.v + b * p.v_sb + hk * p.v_sh;
+  float* o = p.o + b * p.o_sb + h * p.o_sh;
 
   for (int idx = tid; idx < kBQ * DP; idx += kThreads) {
     const int r = idx / DP, d = idx % DP, s = q0 + r;
-    Qs[r * LQ + d] = (s < p.S && d < p.dh) ? to_f(q[s * p.q_ss + d]) : 0.f;
+    Qs[r * LQ + d] = (s < p.S && d < p.dh) ? q[s * p.q_ss + d] : 0.f;
   }
 
   const int rg = tid >> 3;  // query rows rg*4 .. rg*4+3 of the tile
@@ -153,8 +132,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     for (int idx = tid; idx < kBK * DP; idx += kThreads) {
       const int r = idx / DP, d = idx % DP, t = k0 + r;
       const bool ok = t < p.T && d < p.dh;
-      Ks[r * LQ + d] = ok ? to_f(k[t * p.k_ss + d]) : 0.f;
-      Vs[r * DP + d] = ok ? to_f(v[t * p.v_ss + d]) : 0.f;
+      Ks[r * LQ + d] = ok ? k[t * p.k_ss + d] : 0.f;
+      Vs[r * DP + d] = ok ? v[t * p.v_ss + d] : 0.f;
     }
     __syncthreads();
 
@@ -257,14 +236,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int d = cg * 4 + 32 * j + e;
-        if (d < p.dh) o[s * p.o_ss + d] = from_f<T>(acc[i][j * 4 + e] / den);
+        if (d < p.dh) o[s * p.o_ss + d] = acc[i][j * 4 + e] / den;
       }
   }
 }
 
-template <typename T, int DP>
+template <int DP>
 cudaError_t launch(const Params& p, int B, int H, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, DP>;
+  auto kern = flash_fwd_kernel<DP>;
   constexpr size_t smem = smem_bytes<DP>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -276,34 +255,32 @@ cudaError_t launch(const Params& p, int B, int H, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t by_dp(const Params& p, int B, int H, cudaStream_t stream) {
-  if (p.dh <= 32) return launch<T, 32>(p, B, H, stream);
-  if (p.dh <= 64) return launch<T, 64>(p, B, H, stream);
-  return launch<T, 128>(p, B, H, stream);
+  if (p.dh <= 32) return launch<32>(p, B, H, stream);
+  if (p.dh <= 64) return launch<64>(p, B, H, stream);
+  return launch<128>(p, B, H, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v and o alike).  Strides in elements.
+// float32 q, k, v and o.  Strides in elements.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         long long q_sb, long long q_ss, long long q_sh,
                         long long k_sb, long long k_ss, long long k_sh,
                         long long v_sb, long long v_ss, long long v_sh,
                         long long o_sb, long long o_ss, long long o_sh,
                         int B, int S, int T, int H, int Hk, int dh,
-                        float scale, int causal, int dtype, void* stream) {
+                        float scale, int causal, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || H <= 0 || Hk <= 0 || H % Hk != 0 ||
-      dh <= 0 || dh > 128 || B > 65535 || H > 65535 || dtype < 0 ||
-      dtype > 1)
+      dh <= 0 || dh > 128 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.o = static_cast<float*>(o);
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
@@ -314,9 +291,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   p.dh = dh;
   p.causal = causal ? 1 : 0;
   p.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? (int)by_dp<float>(p, B, H, st)
-                    : (int)by_dp<__nv_bfloat16>(p, B, H, st);
+  return (int)by_dp(p, B, H, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_error_string(int code) {

@@ -2,8 +2,11 @@
 
 Counterpart of the reference package's ``kernels/flash_attention.py``
 Pallas kernel ``_kernel`` (K5), the prefill hot spot of the dense models.
-The kernel is ``csrc/flash_attention.cu`` (its header says what bounds it
-and how it is tiled).  This module holds
+Two device kernels, chosen by dtype: bf16 goes to
+``csrc/flash_attention_sm90.cu`` (wgmma on the tensor cores, fed by TMA or,
+where TMA cannot take the strides, by element loads), float32 to
+``csrc/flash_attention.cu`` (float32 FMAs on the CUDA cores); their
+headers say what bounds them and how they are tiled.  This module holds
 
 * :func:`attention_blocks` — softmax attention over blocks of query rows in
   plain PyTorch, the general function of the models' ``chunked_attention``
@@ -14,8 +17,12 @@ and how it is tiled).  This module holds
 * :func:`flash_attention` — the wrapper: a CPU tensor goes to the plain
   version; a CUDA tensor launches the kernel or raises — there is no
   fallback;
-* ``launches`` / ``plain_calls``: the kernel's launches, and the plain
-  version's calls on CUDA tensors (prefill on a card leaves it at 0).
+* ``launches``: ``flash_attention`` counts the wrapper's launches,
+  ``flash_attention_sm90`` / ``flash_attention_f32`` those of each device
+  kernel; ``producers`` counts the bf16 kernel's launches by how its tiles
+  went in (``tma`` or ``loads``);
+* ``plain_calls``: the plain version's calls on CUDA tensors (prefill on a
+  card leaves it at 0).
 
 Layout: the model's, q (B, S, H, dh) and k, v (B, T, Hk, dh) with H a
 multiple of Hk (query head h reads kv head h // (H / Hk)).  The kernel
@@ -29,8 +36,12 @@ reference's oracle ``ref.attention_ref`` aligns bottom-right (``tril(k=T -
 S)``); the two agree only when S == T, which is the only causal case the
 models run.
 
-Dtypes: float32 and bf16 (q, k, v alike).  Scores, softmax and the
-products are float32; the output is cast back to the input's dtype.
+Dtypes: float32 and bf16 (q, k, v alike).  Scores and softmax are float32
+and the output is cast back to the input's dtype.  The float32 kernel's
+products are float32; the bf16 kernel's take P rounded to bf16 into P V
+(as every tensor-core flash attention), which moves its output from the
+plain version's by at most 2^-8 max |v| (bf16's unit roundoff) before
+the output's rounding.
 """
 from __future__ import annotations
 
@@ -44,15 +55,18 @@ from repro_torch.kernels import native
 
 NEG_INF = -1e30   # masked score (the TPU kernel's NEG_INF; exp stays finite)
 DH_MAX = 128      # widest head the kernel takes
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
-launches = {"flash_attention": 0}
+launches = {"flash_attention": 0, "flash_attention_sm90": 0,
+            "flash_attention_f32": 0}
+producers = {"tma": 0, "loads": 0}
 plain_calls = {"flash_attention_plain": 0}
 
 
 def reset_launch_counts() -> None:
-    launches["flash_attention"] = 0
-    plain_calls["flash_attention_plain"] = 0
+    for counts in (launches, producers, plain_calls):
+        for name in counts:
+            counts[name] = 0
 
 
 # ------------------------------------------------------------ plain versions
@@ -107,8 +121,8 @@ def flash_attention(q, k, v, *, causal=True, block_q=512):
     card with q's strides where q is dense).
 
     CPU tensors take the plain version (``block_q`` bounds its scores'
-    memory; the kernel tiles by its own 64 x 64); CUDA tensors launch the
-    kernel or raise."""
+    memory; the kernels tile by their own sizes); CUDA tensors launch the
+    kernel of their dtype or raise."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, block_q=block_q)
     return _launch(q, k, v, causal)
@@ -117,15 +131,20 @@ def flash_attention(q, k, v, *, causal=True, block_q=512):
 # ------------------------------------------------------------------- launch
 
 @functools.cache
-def _library():
-    lib = native.load("flash_attention")
+def _library(stem: str):
+    """The float32 kernel (``flash_attention``) or the bf16 one
+    (``flash_attention_sm90``, whose entry also reports its producer)."""
+    lib = native.load(stem)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_attention_fwd.argtypes = ([p] * 4 + [ll] * 12 + [i] * 6
-                                        + [ctypes.c_float] + [i] * 2 + [p])
-    lib.flash_attention_fwd.restype = i
-    lib.flash_attention_error_string.argtypes = [i]
-    lib.flash_attention_error_string.restype = ctypes.c_char_p
-    return lib
+    fwd = getattr(lib, f"{stem}_fwd")
+    err = getattr(lib, f"{stem}_error_string")
+    extra = [ctypes.POINTER(i)] if stem == "flash_attention_sm90" else []
+    fwd.argtypes = ([p] * 4 + [ll] * 12 + [i] * 6 + [ctypes.c_float] + [i]
+                    + extra + [p])
+    fwd.restype = i
+    err.argtypes = [i]
+    err.restype = ctypes.c_char_p
+    return fwd, err
 
 
 def _check(q, k, v):
@@ -139,7 +158,7 @@ def _check(q, k, v):
             raise ValueError(f"{name}: {n} on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
             raise TypeError(f"{name}: {n} is {t.dtype}, q is {q.dtype}")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in _DTYPES:
         raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -167,17 +186,23 @@ def _launch(q, k, v, causal):
     o = torch.empty_like(q)
     if S == 0 or B == 0:
         return o
-    lib = _library()
+    bf16 = q.dtype == torch.bfloat16
+    stem = "flash_attention_sm90" if bf16 else "flash_attention"
+    fwd, err = _library(stem)
+    producer = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            *(t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)),
-            B, S, T, H, Hk, dh, 1.0 / math.sqrt(dh), int(causal),
-            _DTYPE_CODE[q.dtype], stream)
+        rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 *(t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)),
+                 B, S, T, H, Hk, dh, 1.0 / math.sqrt(dh), int(causal),
+                 *([ctypes.byref(producer)] if bf16 else []), stream)
     if rc != 0:
-        msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"flash_attention: kernel launch failed ({rc}: "
-                           f"{msg})")
+                           f"{err(rc).decode()})")
     launches["flash_attention"] += 1
+    if bf16:
+        launches["flash_attention_sm90"] += 1
+        producers["tma" if producer.value == 1 else "loads"] += 1
+    else:
+        launches["flash_attention_f32"] += 1
     return o

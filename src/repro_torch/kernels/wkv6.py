@@ -1,9 +1,11 @@
 """RWKV-6 chunked WKV forward (K6): the CUDA kernel's wrapper and plain version.
 
 Counterpart of the reference package's ``kernels/wkv6.py`` Pallas kernel
-``_kernel`` (K6), the hot loop of the rwkv6 prefill.  The kernel is
-``csrc/wkv6.cu`` (its header says what bounds it and how it is laid out).
-This module holds
+``_kernel`` (K6), the hot loop of the rwkv6 prefill.  The kernels are
+``csrc/wkv6.cu``: a chunk kernel and an output kernel, parallel over
+chunks, and between them a scan kernel that carries the state through the
+chunks elementwise (the header says what bounds them and how they are laid
+out).  This module holds
 
 * :func:`wkv6_chunked` — the chunked WKV6 from a given state, returning the
   final state: a copy of the reference's ``models/ssm.py::_wkv6_chunked``,
@@ -13,8 +15,11 @@ This module holds
   zero state, final state dropped;
 * :func:`wkv6` — the wrapper: a CPU tensor goes to the plain version; a
   CUDA tensor launches the kernel or raises — there is no fallback;
-* ``launches`` / ``plain_calls``: the kernel's launches, and the plain
-  version's calls on CUDA tensors (prefill on a card leaves it at 0).
+* ``launches``: ``wkv6`` counts the wrapper's launches, ``wkv6_chunk``,
+  ``wkv6_scan`` and ``wkv6_out`` those of each device kernel (one each per
+  call);
+* ``plain_calls``: the plain version's calls on CUDA tensors (prefill on a
+  card leaves it at 0).
 
 Layout: r, k, v, w (B, T, H, P) float32 with w in (0, 1), u (H, P); the
 state (B, H, P, P) is keyed [key channel, value channel].
@@ -28,15 +33,16 @@ import torch
 
 from repro_torch.kernels import native
 
-P_MAX = 128   # widest head the kernel takes (its state is P x P in shared memory)
+P_MAX = 128   # widest head the kernels take
 
-launches = {"wkv6": 0}
+launches = {"wkv6": 0, "wkv6_chunk": 0, "wkv6_scan": 0, "wkv6_out": 0}
 plain_calls = {"wkv6_plain": 0}
 
 
 def reset_launch_counts() -> None:
-    launches["wkv6"] = 0
-    plain_calls["wkv6_plain"] = 0
+    for counts in (launches, plain_calls):
+        for name in counts:
+            counts[name] = 0
 
 
 # ------------------------------------------------------------ plain versions
@@ -100,8 +106,8 @@ def wkv6(r, k, v, w, u, *, chunk=64):
     final state is not returned).
 
     CPU tensors take the plain version (``chunk`` is its chunk); CUDA
-    tensors launch the kernel (any T; its chunk of 32 steps is its own,
-    chunking being exact algebra) or raise."""
+    tensors launch the kernels (any T; their chunk of 32 steps is their
+    own, chunking being exact algebra) or raise."""
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, chunk=chunk)
     return _launch(r, k, v, w, u)
@@ -113,8 +119,10 @@ def wkv6(r, k, v, w, u, *, chunk=64):
 def _library():
     lib = native.load("wkv6")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.wkv6_fwd.argtypes = [p] * 6 + [ll] * 6 + [i] * 4 + [p]
+    lib.wkv6_fwd.argtypes = [p] * 7 + [ll] * 6 + [i] * 4 + [p]
     lib.wkv6_fwd.restype = i
+    lib.wkv6_scratch_floats.argtypes = [i] * 4
+    lib.wkv6_scratch_floats.restype = ll
     lib.wkv6_error_string.argtypes = [i]
     lib.wkv6_error_string.restype = ctypes.c_char_p
     return lib
@@ -159,14 +167,20 @@ def _launch(r, k, v, w, u):
     if B == 0 or T == 0 or H == 0:
         return y
     lib = _library()
+    # r e^esc, the intra-chunk y and each chunk's state increment (then
+    # the state entering it) and decay: the chunk kernel writes them, the
+    # scan and output kernels read them
+    scratch = torch.empty(lib.wkv6_scratch_floats(B, T, H, P),
+                          dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.wkv6_fwd(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(), y.data_ptr(), *r.stride()[:3], *y.stride()[:3],
-            B, T, H, P, stream)
+            u.data_ptr(), y.data_ptr(), scratch.data_ptr(), *r.stride()[:3],
+            *y.stride()[:3], B, T, H, P, stream)
     if rc != 0:
         msg = lib.wkv6_error_string(rc).decode()
         raise RuntimeError(f"wkv6: kernel launch failed ({rc}: {msg})")
-    launches["wkv6"] += 1
+    for name in launches:
+        launches[name] += 1
     return y

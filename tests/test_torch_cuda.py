@@ -8,7 +8,8 @@ Tolerance: rtol = atol = 1e-5, float32 kernel against the float32 plain
 version on the same card (the sums run in another order).  The LLM kernels
 (K5 flash attention, K6 WKV6) use the card check's bounds: K5 2e-5 in
 float32 and 1e-2 with both outputs in bf16 (one bf16 rounding of values
-that agree to float32 precision), K6 2e-4 (the reference's own bound,
+that agree to float32 precision, and the tensor-core kernel's P in bf16,
+at most 2^-8 max |v|), K6 2e-4 (the reference's own bound,
 ``tests/test_kernels_wkv6.py``: its exponentials and cumulative sums run
 in another order).
 """
@@ -284,6 +285,31 @@ def test_flash_attention_matches_plain_on_card(dev, B, S, T, H, Hk, dh,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dh,producer", [(64, "tma"), (128, "tma"),
+                                         (100, "loads")])
+@pytest.mark.parametrize("S,T,causal", [(200, 200, True), (333, 200, True),
+                                        (200, 333, True), (129, 129, True),
+                                        (150, 333, False)])
+@pytest.mark.parametrize("heads_first", [False, True])
+def test_flash_attention_bf16_kernel_on_card(dev, dh, producer, S, T, causal,
+                                             heads_first):
+    """bf16 goes to the tensor-core kernel: by TMA where the strides allow
+    it (dh 64, 128), by element loads where they do not (dh 100: a 200-byte
+    row); S and T not multiples of its 128-row tiles."""
+    q, k, v = _qkv(dev, 2, S, T, 8, 2, dh, torch.bfloat16, seed=S + T + dh,
+                   heads_first=heads_first)
+    before = {**FA.launches, **FA.producers}
+    got = FA.flash_attention(q, k, v, causal=causal)
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    after = {**FA.launches, **FA.producers}
+    assert {n for n in after if after[n] != before[n]} == {
+        "flash_attention", "flash_attention_sm90", producer}
+    assert got.stride() == q.stride()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
 def test_flash_attention_refuses_what_it_does_not_take(dev):
     q, k, v = _qkv(dev, 1, 8, 8, 2, 2, 16, torch.float32, 0)
     with pytest.raises(TypeError):
@@ -321,6 +347,23 @@ def test_wkv6_matches_plain_on_card(dev, B, T, H, P, chunk, w_mode):
     want = WK.wkv6_plain(r, k, v, w, u, chunk=chunk)
     torch.cuda.synchronize()
     assert WK.launches["wkv6"] == before + 1
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("w_mode", ["uniform", "strong"])
+@pytest.mark.parametrize("B,T,H,P,chunk", [
+    (1, 5, 2, 16, 5), (2, 31, 2, 128, 31), (2, 33, 3, 16, 11),
+    (3, 99, 2, 128, 33), (1, 1000, 2, 64, 50)])
+def test_wkv6_ragged_on_card(dev, B, T, H, P, chunk, w_mode):
+    """T below the kernels' chunk of 32, T not a multiple of it, B = 3;
+    one launch of each of its device kernels per call."""
+    r, k, v, w, u = _rkvwu(dev, B, T, H, P, w_mode, seed=T + P)
+    before = dict(WK.launches)
+    got = WK.wkv6(r, k, v, w, u)
+    want = WK.wkv6_plain(r, k, v, w, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert all(WK.launches[n] == before[n] + 1 for n in before)
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 

@@ -256,7 +256,9 @@ def test_wkv6_ragged_chunk_fails_like_the_reference():
 
 
 def _wkv6_twin(r, k, v, w, u, c=32):
-    """Torch twin of the CUDA kernel (``csrc/wkv6.cu``): chunks of c steps
+    """Torch twin of the chunked recurrence the CUDA kernels compute
+    (``csrc/wkv6.cu``; their split into chunk, scan and output kernels has
+    its own twin in ``test_torch_lm_kernels_sm90.py``): chunks of c steps
     from a zero state, the ragged tail padded with r = k = v = 0 and w = 1,
     pairwise intra-chunk exponents esc_i - seg_j, the bonus on the diagonal,
     then r e^esc against the carried state and the state update."""
