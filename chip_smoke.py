@@ -2,13 +2,20 @@
 """Card check of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py --ab DIR   # K3/K4 against DIR's sources, in turns
 
-Run from the root of a checkout.  Phases, in order; a failure in any of them
-ends the run with a non-zero exit code and no result line:
+Run from the root of a checkout.  With ``--ab DIR`` only the build and an
+A/B runs: this checkout's K3 and K4 and the ones built from
+``DIR/pinn_mlp_fwd.cu`` / ``DIR/pinn_mlp_bwd.cu`` (another revision, e.g.
+``git show HEAD~1:src/repro_torch/csrc/pinn_mlp_fwd.cu``), each held
+against the plain versions, timed in turns (other, this, this, other) at
+the training shapes of phase 3.  Otherwise, phases in order; a failure in
+any of them ends the run with a non-zero exit code and no result line:
 
 1. **build** — compile every CUDA source under ``src/repro_torch/csrc/``
    (one ``nvcc`` per source, all started together) and print the seconds,
-   each instantiation's registers and spills, and per kernel the count of
+   the registers and spill bytes of every K1-K4 instantiation (none may
+   spill), and per kernel the count of
    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in the built
    library's SASS (``cuobjdump -sass``): the bf16 K5 kernel must hold
    ``HGMMA``, and ``UTMALDG`` in its TMA instantiations;
@@ -18,9 +25,12 @@ ends the run with a non-zero exit code and no result line:
    directions all / a strict subset / none, n_sub 1 and 4, ragged point
    counts; then the training kernels: K3 (outputs and every spill, same
    tolerance) and K4 (per-leaf error scaled by max(1, max |want|) <= 1e-5,
-   the reference's rule) over widths 20/24/80/128 at depths 1/4/3/5, with
-   K4 launched twice and held bitwise equal, and ``torch.autograd.grad``
-   through ``ops.pinn_mlp_forward2`` on the card against the CPU;
+   the reference's rule) over widths 20/24/80/128 at depths 1/4/3/5, then
+   the edges of K4's partition (m = 1, a tile less one, a tile, a tile and
+   one, 1120; widths 24/36/100; n_sub 1, 4 and 9, some with blocks owning
+   unequal numbers of tiles), with K4 launched twice and held bitwise
+   equal, and ``torch.autograd.grad`` through ``ops.pinn_mlp_forward2`` on
+   the card against the CPU;
 3. **timing** — each kernel (CUDA graph of back-to-back launches), its
    wrapper call and its plain version with CUDA events beside the shape's
    bound: K1/K2 at the serving shapes (n_sub=4, m = 64/512/4096 points per
@@ -38,8 +48,10 @@ ends the run with a non-zero exit code and no result line:
    before and read just after: it must reach rel-L2 < 0.5 against
    Cole-Hopf with one K3 and one K4 launch per loss evaluation and no plain
    version run on a CUDA tensor; then 10 steps from one init on the card
-   and on the CPU are held together, and the ms per training step is split
-   into forward kernel, backward kernel and everything else;
+   and on the CPU are held together, the ms per training step is taken over
+   three chunks of 100 steps and split into forward kernel, backward kernel
+   and everything else, and torch.profiler traces 20 steady steps: device
+   busy ms, idle share, K3's and K4's device ms;
 6. **lm kernels** — hold K5 (flash attention) against its plain version on
    the card: float32 (rtol = atol = 2e-5, the CUDA-core kernel) and bf16
    (both outputs bf16, rtol = atol = 1e-2, the tensor-core kernel: by TMA
@@ -129,6 +141,9 @@ DEVICE_KERNELS = {"flash_attention_sm90": "flash_fwd_sm90_kernel",
                   "wkv6_chunk": "wkv6_chunk_kernel",
                   "wkv6_scan": "wkv6_scan_kernel",
                   "wkv6_out": "wkv6_out_kernel"}
+# device kernels of a training step (the profiler split of the train phase)
+TRAIN_KERNELS = {"k3": "pinn_mlp_fwd_kernel", "k4": "pinn_mlp_bwd_kernel",
+                 "k4_reduce": "pinn_mlp_bwd_reduce"}
 REPLACES = {"pinn_mlp_fwd1": "src/repro/kernels/pinn_mlp.py:82",
             "pinn_mlp_fwd2": "src/repro/kernels/pinn_mlp.py:148",
             "pinn_mlp_fwd2_res": "src/repro/kernels/pinn_mlp.py:166",
@@ -196,6 +211,20 @@ def build_phase() -> None:
                       "instantiations": len(regs),
                       "registers_max": max(regs, default=None),
                       "spill_bytes_max": max(spills, default=None)})
+    train = {stem: _ptxas_report(info[stem]["log"])
+             for stem in ("pinn_mlp_fwd", "pinn_mlp_bwd")}
+    check(all(train.values()), "no ptxas report for the K1-K4 libraries")
+    for stem, rows in train.items():
+        for kern, nreg, spill in rows:
+            print(f"ptxas {stem}: {kern} registers {nreg} spill bytes "
+                  f"{spill}")
+    emit({"ptxas_k1_k4": {stem: {
+        "instantiations": len(rows),
+        "registers": [min(r[1] for r in rows), max(r[1] for r in rows)],
+        "spill_bytes_max": max(r[2] for r in rows)}
+        for stem, rows in train.items()}})
+    check(all(r[2] == 0 for rows in train.values() for r in rows),
+          "a K1-K4 instantiation spills registers")
     sass = _sass_counts(info)
     emit({"sass": sass})
     sm90 = {k: v for k, v in sass.items() if "flash_fwd_sm90_kernel" in k}
@@ -206,6 +235,26 @@ def build_phase() -> None:
     check(sum(map(tma, sm90)) == 2 and
           all((v["UTMALDG"] > 0) == tma(k) for k, v in sm90.items()),
           f"bf16 K5 TMA instantiations without TMA loads: {sm90}")
+
+
+def _ptxas_report(log: str) -> list:
+    """(kernel, registers, spill store bytes) of every entry function in a
+    ``-Xptxas -v`` log, the kernel's name demangled without its argument
+    list."""
+    rows = []
+    for ent in re.split(r"Compiling entry function '", log)[1:]:
+        regs = re.search(r"Used (\d+) registers", ent)
+        spill = re.search(r"(\d+) bytes spill stores", ent)
+        rows.append([ent.split("'", 1)[0], int(regs.group(1)),
+                     int(spill.group(1))])
+    cuda = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    names = subprocess.run([os.path.join(cuda, "bin", "cu++filt")],
+                           input="\n".join(r[0] for r in rows),
+                           capture_output=True, text=True, check=True,
+                           timeout=60).stdout.splitlines()
+    check(len(names) == len(rows), f"cu++filt gave {len(names)} names")
+    return [(_without_args(n), r[1], r[2]) for n, r in zip(names, rows)
+            if "pinn_mlp" in n]
 
 
 def _sass_counts(info) -> dict:
@@ -589,39 +638,57 @@ def train_sweep(dev) -> dict:
     scaled = 0.0
     subsets = {1: (None, ()), 2: (None, (0,), ()), 3: (None, (0, 2), ())}
     n_cases = 0
+
+    def case(act, d_in, n_out, width, depth, d2, n_sub, n):
+        nonlocal scaled, n_cases
+        args = _net(gen, n_sub, n, d_in, width, depth, n_out, dev)
+        cts = _cotangents(gen, n_sub, n, d_in, n_out, dev)
+        got, gbar = _run_train(True, args, n_out, act, d2, cts)
+        want, wbar = _run_train(False, args, n_out, act, d2, cts)
+        again = _run_train(True, args, n_out, act, d2, cts)[1]
+        torch.cuda.synchronize()
+        ae, _ = _compare(got, want, d_in, d2)
+        be = max(_leaf_err(g, w) for g, w in zip(gbar, wbar))
+        babs = max(float((g - w).abs().max())
+                   for g, w in zip(gbar, wbar) if w.numel())
+        check(be <= TOL, f"K4 disagrees: {be:.3e}")
+        check(all(torch.equal(g, a) for g, a in zip(gbar, again)),
+              "K4 is not bitwise deterministic")
+        worst["pinn_mlp_fwd2_res"] = max(worst["pinn_mlp_fwd2_res"], ae)
+        worst["pinn_mlp_bwd2"] = max(worst["pinn_mlp_bwd2"], babs)
+        scaled = max(scaled, be)
+        n_cases += 1
+        print(f"res+bwd {act:4s} d{d_in} w{width}x{depth} "
+              f"d2={'all' if d2 is None else d2} "
+              f"{n_sub}x{n} K3 abs {ae:.1e} K4 {be:.1e}")
+
     for act in ("tanh", "sin", "cos"):
         for d_in in (1, 2, 3):
             n_out = 1 if d_in == 2 else 3
             for width, depth in ((20, 1), (24, 4), (80, 3), (128, 5)):
                 for d2 in subsets[d_in]:
                     for n_sub, n in ((1, 1013), (4, 517)):
-                        args = _net(gen, n_sub, n, d_in, width, depth,
-                                    n_out, dev)
-                        cts = _cotangents(gen, n_sub, n, d_in, n_out, dev)
-                        got, gbar = _run_train(True, args, n_out, act, d2,
-                                               cts)
-                        want, wbar = _run_train(False, args, n_out, act, d2,
-                                                cts)
-                        again = _run_train(True, args, n_out, act, d2,
-                                           cts)[1]
-                        torch.cuda.synchronize()
-                        ae, _ = _compare(got, want, d_in, d2)
-                        be = max(_leaf_err(g, w) for g, w in zip(gbar, wbar))
-                        babs = max(float((g - w).abs().max())
-                                   for g, w in zip(gbar, wbar) if w.numel())
-                        check(be <= TOL, f"K4 disagrees: {be:.3e}")
-                        check(all(torch.equal(g, a)
-                                  for g, a in zip(gbar, again)),
-                              "K4 is not bitwise deterministic")
-                        worst["pinn_mlp_fwd2_res"] = max(
-                            worst["pinn_mlp_fwd2_res"], ae)
-                        worst["pinn_mlp_bwd2"] = max(worst["pinn_mlp_bwd2"],
-                                                     babs)
-                        scaled = max(scaled, be)
-                        n_cases += 1
-                        print(f"res+bwd {act:4s} d{d_in} w{width}x{depth} "
-                              f"d2={'all' if d2 is None else d2} "
-                              f"{n_sub}x{n} K3 abs {ae:.1e} K4 {be:.1e}")
+                        case(act, d_in, n_out, width, depth, d2, n_sub, n)
+    # the edges of K4's partition: one row, a tile less one, a tile, a tile
+    # and one, the quickstart's rows (blocks owning unequal numbers of
+    # tiles where a subdomain has more tiles than resident blocks); widths
+    # 36 and 100, odd numbers (9, 25) of the micro-tiles' 4-column groups;
+    # 1, 4 and 9 subdomains
+    n_main = n_cases
+    unequal = 0
+    for d_in, d2, act in ((2, (0,), "tanh"), (3, None, "sin"),
+                          (1, (), "cos")):
+        n_out = 1 if d_in == 2 else 3
+        for width, depth in ((24, 4), (36, 3), (100, 3)):
+            tile = _k4_plan(1, 1, d_in, width, depth, n_out, d2)[0]
+            for n_sub in (1, 4, 9):
+                for n in sorted({1, tile - 1, tile, tile + 1, 1120}):
+                    blocks = _k4_plan(n_sub, n, d_in, width, depth, n_out,
+                                      d2)[1]
+                    n_tiles = -(-n // tile)
+                    unequal += n_tiles % blocks != 0
+                    case(act, d_in, n_out, width, depth, d2, n_sub, n)
+    check(unequal > 0, "no edge case had blocks owning unequal tiles")
     # autograd through the packed call: card (K3 + K4) against the CPU
     args = [t.cpu() for t in _net(gen, 4, 1120, 2, 24, 4, 1, dev)]
     x, w, b, av = args
@@ -641,10 +708,26 @@ def train_sweep(dev) -> dict:
     ag = max(_leaf_err(g.cpu(), c) for g, c in zip(grads[str(dev)],
                                                    grads["cpu"]))
     check(ag <= TOL, f"autograd boundary card vs CPU: {ag:.3e}")
-    emit({"train_sweep_cases": n_cases, "tol": TOL,
-                      "max_abs_err": worst, "k4_max_scaled_err": scaled,
-                      "autograd_card_vs_cpu": ag})
+    emit({"train_sweep_cases": n_cases, "edge_cases": n_cases - n_main,
+          "edge_cases_unequal_tiles": unequal, "tol": TOL,
+          "max_abs_err": worst, "k4_max_scaled_err": scaled,
+          "autograd_card_vs_cpu": ag})
     return worst
+
+
+def _k4_plan(n_sub, n, d_in, width, depth, n_out, d2) -> tuple[int, int]:
+    """K4's (tile rows, blocks per subdomain) for a shape on this card."""
+    import ctypes
+
+    from repro_torch.kernels import pinn_mlp as K
+
+    sel = tuple(range(d_in)) if d2 is None else tuple(d2)
+    tile, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    rc = K._library_bwd().pinn_mlp_bwd_plan(
+        n_sub, n, d_in, -(-width // 4) * 4, depth, n_out, 0, len(sel),
+        ctypes.byref(tile), ctypes.byref(blocks))
+    check(rc == 0, f"pinn_mlp_bwd_plan failed ({rc})")
+    return tile.value, blocks.value
 
 
 def train_bound(n_sub, m, d_in, width, depth, n_out, ns, kernel):
@@ -718,6 +801,70 @@ def train_timing(dev, m_main: int) -> dict:
             out[(name, width, depth, m_main)] = row
             emit({"timing": row})
     return out
+
+
+def ab_phase(dev, other: str, m_main: int) -> None:
+    """K3 and K4 of this checkout against those built from the sources in
+    the directory ``other`` (``pinn_mlp_fwd.cu`` and ``pinn_mlp_bwd.cu`` of
+    another revision, with the same C interface), in one process on one
+    card: each library held against the plain versions, then both timed in
+    turns (other, this, this, other) at train_timing's two shapes."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels import native
+    from repro_torch.kernels import pinn_mlp as K
+
+    libs = {"this": (K._library, K._library_bwd)}
+    other_libs = []
+    for stem, bind in (("pinn_mlp_fwd", K.bind_fwd),
+                       ("pinn_mlp_bwd", K.bind_bwd)):
+        built = native.build([os.path.join(other, stem + ".cu")])[stem]
+        rows = _ptxas_report(built["log"])
+        emit({"ab_build": {"source": os.path.join(other, stem + ".cu"),
+                           "registers": [min(r[1] for r in rows),
+                                         max(r[1] for r in rows)],
+                           "spill_bytes_max": max(r[2] for r in rows)}})
+        lib = bind(ctypes.CDLL(built["path"]))
+        other_libs.append(lambda lib=lib: lib)
+    libs["other"] = tuple(other_libs)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    try:
+        for width, depth in ((24, 4), (80, 5)):
+            d_in, n_out, act, n_sub, d2 = 2, 1, "tanh", 4, (0,)
+            args = _net(gen, n_sub, m_main, d_in, width, depth, n_out, dev)
+            cts = _cotangents(gen, n_sub, m_main, d_in, n_out, dev)
+            want, wbar = _run_train(False, args, n_out, act, d2, cts)
+            x, w, b, av = args
+            res = want[3]
+            calls = {
+                "pinn_mlp_fwd2_res": lambda: K.pinn_mlp_fwd2_res(
+                    *args, n_out=n_out, act=act, d2_dirs=d2),
+                "pinn_mlp_bwd2": lambda: K.pinn_mlp_bwd2(
+                    x, w, av, res, *cts, n_out=n_out, act=act, d2_dirs=d2)}
+            times = {}
+            for side in ("other", "this", "this", "other"):
+                K._library, K._library_bwd = libs[side]
+                got, gbar = _run_train(True, args, n_out, act, d2, cts)
+                torch.cuda.synchronize()
+                _compare(got, want, d_in, d2)
+                be = max(_leaf_err(g, v) for g, v in zip(gbar, wbar))
+                check(be <= TOL, f"{side} K4 disagrees: {be:.3e}")
+                for name, fn in calls.items():
+                    times.setdefault((name, side), []).append(
+                        _graph_ms(fn, 200))
+            for name in calls:
+                bms = train_bound(n_sub, m_main, d_in, width, depth, n_out,
+                                  len(d2), name)[0]
+                emit({"ab": {"kernel": name,
+                             "shape": f"n_sub={n_sub} m={m_main} "
+                                      f"w{width}x{depth} d_in={d_in} "
+                                      f"d2={list(d2)}",
+                             "other_ms": times[(name, "other")],
+                             "this_ms": times[(name, "this")],
+                             "bound_ms": bms}})
+    finally:
+        K._library, K._library_bwd = libs["this"]
 
 
 def _train_setup(device, seed=SEED):
@@ -795,20 +942,44 @@ def train_phase(dev) -> dict:
     check(term_err <= TRAJ_RTOL, f"10-step terms card vs CPU: {term_err:.3e}")
     check(par_err <= TRAJ_ATOL, f"10-step params card vs CPU: {par_err:.3e}")
 
-    # ms per training step at the quickstart shape, over a chunk
+    # ms per training step at the quickstart shape, over chunks of 100
+    # steps (three repeats), then a profiler split of 20 steady steps
     trainer, b = _train_setup(dev)
     state = trainer.init(SEED)
     state, _ = trainer.run_chunk(state, b, 20)       # warm-up
     torch.cuda.synchronize()
-    n = 200
+    n, reps = 100, []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, terms = trainer.run_chunk(state, b, n)
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0) * 1e3 / n)
+    step_ms = sorted(reps)[1]
+    holder = {}
+
+    def twenty():
+        holder["s"] = trainer.run_chunk(state, b, 20)[0]
+
     t0 = time.perf_counter()
-    state, terms = trainer.run_chunk(state, b, n)
+    twenty()
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / n
+    wall20 = (time.perf_counter() - t0) * 1e3
+    split = _device_split(twenty, TRAIN_KERNELS)
+    k = split["kernel_ms"]
+    trace = {"steps": 20, "wall_ms": wall20,
+             "profiled_wall_ms": split["profiled_wall_ms"],
+             "device_busy_ms": split["device_busy_ms"],
+             "idle_share": 1.0 - split["device_busy_ms"] / wall20,
+             "k3_ms": k["k3"], "k4_ms": k["k4"] + k["k4_reduce"],
+             "k4_sweep_ms": k["k4"], "k4_reduce_ms": k["k4_reduce"],
+             "device_events": split["device_events"], "top": split["top"]}
+    check(k["k3"] > 0 and k["k4"] > 0,
+          f"the training trace shows no K3 / K4 time: {k}")
     emit({"train_check": {
         "traj_term_rel_err": term_err, "traj_param_abs_err": par_err,
         "traj_rtol": TRAJ_RTOL, "traj_atol": TRAJ_ATOL,
-        "step_ms": step_ms, "m_per_sub": _rows(b)}})
+        "step_ms": step_ms, "step_ms_repeats": reps,
+        "m_per_sub": _rows(b), "trace": trace}})
     return {"launches": counts, "step_ms": step_ms}
 
 
@@ -1017,36 +1188,41 @@ def lm_timing(dev) -> dict:
     return out
 
 
-def _device_split(fn) -> dict:
+def _device_split(fn, kernels=None) -> dict:
     """One call of ``fn`` under torch.profiler: the device time of every
     kernel and copy it ran (events on the CUDA device only, each counted
-    once), the part of it in each K5/K6 device kernel (found by its name in
-    DEVICE_KERNELS), and the largest items."""
+    once), the part of it in each device kernel of ``kernels`` (name ->
+    symbol; DEVICE_KERNELS, the K5/K6 kernels, by default), the largest
+    items, and the host-clock ms of the profiled call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    kernels = DEVICE_KERNELS if kernels is None else kernels
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
     busy = 0.0
-    kern = dict.fromkeys(DEVICE_KERNELS, 0.0)
+    kern = dict.fromkeys(kernels, 0.0)
     top = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
             continue
         ms = ev.self_device_time_total / 1e3
         busy += ms
-        for name, sym in DEVICE_KERNELS.items():
+        for name, sym in kernels.items():
             if re.search(rf"\b{sym}\b", ev.key):
                 kern[name] += ms
         top.append((ms, ev.count, ev.key[:70]))
     top.sort(reverse=True)
     return {"device_busy_ms": busy, "k5_k6_ms": sum(kern.values()),
             "kernel_ms": kern, "device_events": sum(n for _, n, _ in top),
-            "top": [[round(t, 3), n, k] for t, n, k in top[:8]]}
+            "top": [[round(t, 3), n, k] for t, n, k in top[:8]],
+            "profiled_wall_ms": wall}
 
 
 def llm_phase(dev) -> dict:
@@ -1183,6 +1359,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every phase's numbers to this JSON")
+    ap.add_argument("--ab", default=None, metavar="DIR",
+                    help="only time this checkout's K3/K4 against the "
+                         "pinn_mlp_fwd.cu / pinn_mlp_bwd.cu in DIR (another "
+                         "revision's), in turns; no other phase runs")
     args = ap.parse_args(argv)
 
     import torch
@@ -1206,6 +1386,12 @@ def main(argv=None) -> int:
         emit({"phase": name, "seconds": round(time.perf_counter() - t0, 2)})
         return res
 
+    if args.ab:
+        _, b_main = _train_setup("cpu")
+        phase("build", build_phase)
+        phase("ab", ab_phase, dev, args.ab, _rows(b_main))
+        print(_smi())
+        return 0
     phase("build", build_phase)
     worst = phase("kernels", sweep, dev)
     worst.update(phase("train kernels", train_sweep, dev))

@@ -18,42 +18,59 @@
 // holds, the ones ENTERING the stage, to
 //   res (n_sub, n_layers, S, n_pts, wp),  S = 1 + d_in + NS,
 // stream order h, t_0..t_{d_in-1}, then the kept s_k (k-th entry of
-// d2_dirs).  Each (stream, tile) is a contiguous run of rows x wp floats,
-// written row-major from the shared-memory tile, so the stores coalesce;
+// d2_dirs).  Each (stream, tile) is a contiguous run of rows x wp floats;
 // the reverse sweep (pinn_mlp_bwd.cu) reads the same runs.  With NS == 0
 // only h and t are spilled.
 //
-// What bounds it on this card: FP32 FMA throughput.  Per point and layer the
-// matmul work is (1 + d_in + NS) * 2 * W_in * W_out FLOP, while the bytes
-// moved are only x in (d_in floats) and (1 + d_in + [d_in]) * n_out floats
-// out: weights are re-read per block from L2, and every activation and
-// tangent stays on chip.  At serving batches of a few thousand points the
-// whole call is a few microseconds of arithmetic, so launch latency bounds
-// it there.  With SAVE the spills change that at small widths: at the
-// training shape (wp = 24, 4 hidden layers, S = 4 for d_in = 2 and
-// d2_dirs = (0,)) they are 1.5 KB per point, about 7 MB per step for the
-// ~4.6k megabatch rows of a 2x2 Burgers XPINN, i.e. 2.1 us at 3.35 TB/s,
-// against about 63 MFLOP, 0.9 us at 67 TFLOP/s: the spill bytes bound K3
-// there (and at that size launch latency, ~15 us, bounds it in practice).
+// What bounds it on this card.  Per point and layer the matrix work is
+// S * 2 * W_in * W_out FLOP; the bytes are x in, (1 + d_in + [d_in]) * n_out
+// floats out and, with SAVE, the spills (1.5 KB per point at width 24 x 4,
+// S = 4).  At the quickstart's training megabatch (n_sub 4 x 1120 rows,
+// 24 x 4) the spill bytes bound K3 at 2.1 us; at 80 x 5 the FP32 FMAs bound
+// it at 13.8 us (67 TFLOP/s).  The first version of this kernel reached 11 %
+// of either bound (NVIDIA H100 80GB HBM3, 700 W): 128 threads and one
+// 32-row tile per block gave about one block, 4 warps, per SM with nothing
+// to hide the latency of the per-layer weight restaging behind a barrier;
+// each thread owned one output column and read a float4 of activations per
+// 4 FMAs; the spills were scalar stores.  The same kernel at 256 threads and
+// 16-row tiles was 1.3-1.4x faster on the card, which confirmed the
+// diagnosis before this design.  This one reaches 22 % and 27 %: at the
+// quickstart's shape only 96 of a block's 256 threads have a micro-tile or
+// a float4 of the activation stage, and a layer is two barriers and a few
+// hundred dependent cycles; at 80 x 5 the blocks restage 29 MB of weights
+// from L2.
 //
-// Design.  Grid = (point tiles, n_sub): a block walks the whole layer stack
-// for tile_m rows of ONE subdomain, reading that subdomain's packed weights
-// (this replaces the reference's vmap over pallas_call).  The streams h, t_j,
-// s_k of the tile live in shared memory (double-buffered: in -> out per
-// affine layer), and one layer's weight matrix at a time is staged in shared
-// memory (at width 128 that is 64 KB; the whole stack would not fit).  Per
-// hidden layer:
-//   1. activation, elementwise and in place, in the order of _kernel2_run:
+// Design.  Grid = (point tiles, n_sub), 256 threads, three blocks resident
+// per SM where shared memory allows and S <= 4 (registers capped at 80
+// for it; two for more streams): a block walks the layer stack for tile_m
+// rows of ONE subdomain (this replaces the reference's vmap over
+// pallas_call).  tile_m is the multiple of 4 up to 32 whose grid takes the
+// fewest waves of resident blocks, weighed by the rows each block walks
+// (pick_tile: 12 rows, 376 blocks in one wave, at the quickstart's shape;
+// 20 at 80 x 5).  The streams h, t_j, s_k of the tile live in shared memory
+// as one stacked (S * tile_m) x wp matrix, double-buffered (in -> out per
+// affine layer).  Per hidden layer:
+//   1. activation, elementwise and in place on float4s, in the order of
+//      _kernel2_run (with SAVE the float4s entering it are first stored to
+//      the spill runs by 16-byte coalesced stores, which no later
+//      instruction waits on; the s-stream's t_{sel[k]} is picked by a
+//      one-hot blend, which keeps the float4s in registers):
 //        s <- phi''(a h) a^2 t^2 + phi'(a h) a s   (before t is overwritten)
 //        t <- phi'(a h) a t
 //        h <- phi(a h)
-//   2. affine layer on every stream: h <- h W + b, t <- t W, s <- s W.
-//      Each thread owns kRows rows x 1 column x all streams in registers and
-//      reads 4 inputs per shared load (float4).
-// The input layer is h = x W0 + b0, t_j = row j of W0, s = 0.
+//   2. affine layer on the stacked streams: out = in W (+ b on the h rows),
+//      a register micro-tile of 4 stacked rows x 4 columns per thread fed by
+//      float4 loads of both operands (16 FMAs per 2 loads).  A thread's rows
+//      are strided by a quarter of the stacked height, so neighbouring lanes
+//      read neighbouring rows (distinct banks).
+// The weights of layer l + 1 arrive by one bulk copy (cp.async.bulk,
+// completing on an mbarrier) into the second of two weight buffers, issued
+// while layer l computes.  The input layer is h = x W0 + b0, t_j = row j of
+// W0, s = 0.
 //
 // Precision: plain IEEE FP32 (fmaf, tanhf/sinf/cosf, no fast math, no TF32),
-// so the result matches the FP32 plain version to ~1e-5.  Widths are padded
+// so the result matches the FP32 plain version to ~1e-5.  Each output sums
+// its products in ascending k, as the first version did.  Widths are padded
 // with zeros to a multiple of 4 (not to the TPU's 128 lanes); padding is
 // exact because the padded rows of the following weight matrix are zero.
 //
@@ -61,12 +78,16 @@
 // stream, does not synchronise, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRows = 4;   // rows per thread in the affine stage
-constexpr size_t kSmemMax = 232448;  // dynamic shared memory per block
+constexpr int kThreads = 256;
+constexpr int kMinBlocks = 3;           // resident blocks per SM aimed at
+constexpr size_t kSmemMax = 232448;     // dynamic shared memory per block
+constexpr size_t kSmemSM = 233472;      // shared memory per SM
+constexpr size_t kSmemReserve = 1024;   // reserved per resident block
+constexpr int kBarBytes = 16;           // two mbarriers ahead of the floats
 
 struct Params {
   const float* x;   // (n_sub, n_pts, d_in)
@@ -81,6 +102,78 @@ struct Params {
   int sel[3];       // s-stream k carries direction sel[k]
   int slot[3];      // direction j -> its s-stream, -1 when pruned
 };
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n"
+      "}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// Wait until the phase of the given parity has completed; a copy that never
+// lands (about 10 s of clock) traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// One 1-D bulk copy global -> shared of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned), completing on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+// component c (a constant after unrolling) of a float4
+__device__ __forceinline__ float comp(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+// 1 where the kept stream's direction `sel` is j, else 0: the one-hot
+// weight by which a t_j is picked without an indexed (local) array
+// set component c (a constant after unrolling) of a float4
+__device__ __forceinline__ void set(float4& v, int c, float x) {
+  if (c == 0) v.x = x; else if (c == 1) v.y = x; else if (c == 2) v.z = x;
+  else v.w = x;
+}
+__device__ __forceinline__ float pick(int sel, int j) {
+  return sel == j ? 1.f : 0.f;
+}
 
 template <int ACT>
 __device__ __forceinline__ void act_eval(float z, float& g, float& d1,
@@ -101,34 +194,50 @@ __device__ __forceinline__ void act_eval(float z, float& g, float& d1,
   }
 }
 
+// kMinBlocks resident blocks per SM (80 registers a thread) for up to four
+// streams; two for more, whose activation stage would spill at 80
 template <int ACT, int D_IN, int NS, bool SAVE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads,
+                                  1 + D_IN + NS <= 4 ? kMinBlocks : 2)
 pinn_mlp_fwd_kernel(const Params p) {
   constexpr int S = 1 + D_IN + NS;  // streams: h, t_0..t_{d_in-1}, s_0..
-  extern __shared__ __align__(16) float smem[];
-  const int wp = p.wp, tm = p.tile_m;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int wp = p.wp, tm = p.tile_m, L = p.n_layers, tid = threadIdx.x;
   const int plane = tm * wp;  // one stream's tile
-  float* in = smem;
-  float* out = smem + S * plane;
-  float* sw = smem + 2 * S * plane;  // one layer's weights, (wp, n)
+  const int wsz = wp * wp;
+  const uint32_t bar0 = smem_u32(smem_raw);
+  float* in = reinterpret_cast<float*>(smem_raw + kBarBytes);
+  float* out = in + S * plane;
+  float* wbuf = out + S * plane;  // two weight buffers of wp x wp
 
   const int q = blockIdx.y;
   const int row0 = blockIdx.x * tm;
   const int rows = min(tm, p.n_pts - row0);
-  const size_t wsz = (size_t)wp * wp;
-  const float* W = p.w + (size_t)q * (p.n_layers + 1) * wsz;
-  const float* B = p.b + (size_t)q * (p.n_layers + 1) * wp;
-  const float* A = p.a + (size_t)q * (p.n_layers + 1);
+  const float* W = p.w + (size_t)q * (L + 1) * wsz;
+  const float* B = p.b + (size_t)q * (L + 1) * wp;
+  const float* A = p.a + (size_t)q * (L + 1);
   const float* X = p.x + ((size_t)q * p.n_pts + row0) * D_IN;
+
+  // W_j goes to buffer j & 1 and is its ((j - 1) >> 1)-th fill
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (L > 0) {
+      mbar_expect_tx(bar0 + 8, wsz * 4);
+      bulk_load(smem_u32(wbuf + wsz), W + wsz, wsz * 4, bar0 + 8);
+    }
+  }
 
   // input affine layer; rows past the ragged tail run on x = 0 and are
   // never stored
-  for (int i = threadIdx.x; i < plane; i += kThreads) {
+  for (int i = tid; i < plane; i += kThreads) {
     const int r = i / wp, c = i - r * wp;
     float acc = 0.f;
     if (r < rows) {
 #pragma unroll
-      for (int j = 0; j < D_IN; ++j) acc = fmaf(X[r * D_IN + j], W[j * wp + c], acc);
+      for (int j = 0; j < D_IN; ++j)
+        acc = fmaf(X[r * D_IN + j], W[j * wp + c], acc);
     }
     in[i] = acc + B[c];
 #pragma unroll
@@ -137,83 +246,106 @@ pinn_mlp_fwd_kernel(const Params p) {
     for (int k = 0; k < NS; ++k) in[(1 + D_IN + k) * plane + i] = 0.f;
   }
 
-  for (int l = 0; l < p.n_layers; ++l) {
-    const int n = (l + 1 == p.n_layers) ? p.n_out : wp;  // output columns
-    __syncthreads();  // `in` complete; `sw` no longer read
-    const float* Wl = W + (size_t)(l + 1) * wsz;
-    for (int i = threadIdx.x; i < wp * n; i += kThreads) {
-      const int k = i / n, c = i - k * n;
-      sw[i] = Wl[k * wp + c];
+  const int nrg = S * tm / 4;  // row groups of the stacked streams
+  for (int l = 0; l < L; ++l) {
+    const int j = l + 1;                        // the affine layer
+    const int n = (j == L) ? p.n_out : wp;      // its output columns
+    __syncthreads();  // `in` complete; the buffer of W_{j+1} no longer read
+    if (tid == 0 && j < L) {
+      const uint32_t bar = bar0 + 8 * ((j + 1) & 1);
+      mbar_expect_tx(bar, wsz * 4);
+      bulk_load(smem_u32(wbuf + ((j + 1) & 1) * wsz), W + (size_t)(j + 1) *
+                wsz, wsz * 4, bar);
     }
-    // 1. activation stage, elementwise and in place; with SAVE the streams
-    //    entering it are spilled first (rows past the tail are not)
+    // 1. activation stage on float4s, in place; with SAVE the streams
+    //    entering it are stored first (rows past the tail are not)
     const float al = A[l];
     float* spill = nullptr;
     size_t sstride = 0;
     if constexpr (SAVE) {
       sstride = (size_t)p.n_pts * wp;
-      spill = p.res + ((size_t)q * p.n_layers + l) * S * sstride +
-              (size_t)row0 * wp;
+      spill = p.res + ((size_t)q * L + l) * S * sstride + (size_t)row0 * wp;
     }
-    for (int i = threadIdx.x; i < plane; i += kThreads) {
+    for (int i = 4 * tid; i < plane; i += 4 * kThreads) {
+      float4 v[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) v[s] = ld4(in + s * plane + i);
       if constexpr (SAVE) {
         if (i < rows * wp) {
 #pragma unroll
-          for (int s = 0; s < S; ++s)
-            spill[s * sstride + i] = in[s * plane + i];
+          for (int s = 0; s < S; ++s) st4(spill + s * sstride + i, v[s]);
         }
       }
-      float g, f1, f2;
-      act_eval<ACT>(al * in[i], g, f1, f2);
-      const float d1 = f1 * al, d2 = f2 * (al * al);
+      // in place, one component at a time: s first (it reads the old t),
+      // then t, then h
 #pragma unroll
-      for (int k = 0; k < NS; ++k) {
-        const float t = in[(1 + p.sel[k]) * plane + i];
-        float& s = in[(1 + D_IN + k) * plane + i];
-        s = d2 * t * t + d1 * s;
+      for (int c = 0; c < 4; ++c) {
+        float g, f1, f2;
+        act_eval<ACT>(al * comp(v[0], c), g, f1, f2);
+        const float d1 = f1 * al, d2 = f2 * (al * al);
+#pragma unroll
+        for (int k = 0; k < NS; ++k) {
+          // t_{sel[k]} by a one-hot blend: exact, and no indexed (local)
+          // array
+          float t = 0.f;
+#pragma unroll
+          for (int jj = 0; jj < D_IN; ++jj)
+            t = fmaf(pick(p.sel[k], jj), comp(v[1 + jj], c), t);
+          set(v[1 + D_IN + k], c, d2 * t * t + d1 * comp(v[1 + D_IN + k], c));
+        }
+#pragma unroll
+        for (int jj = 0; jj < D_IN; ++jj)
+          set(v[1 + jj], c, comp(v[1 + jj], c) * d1);
+        set(v[0], c, g);
       }
 #pragma unroll
-      for (int j = 0; j < D_IN; ++j) in[(1 + j) * plane + i] *= d1;
-      in[i] = g;
+      for (int s = 0; s < S; ++s) st4(in + s * plane + i, v[s]);
     }
+    mbar_wait(bar0 + 8 * (j & 1), ((j - 1) >> 1) & 1);
     __syncthreads();
-    // 2. affine layer l + 1 on every stream
-    const float* bl = B + (size_t)(l + 1) * wp;
-    const int tasks = (tm / kRows) * n;
-    for (int task = threadIdx.x; task < tasks; task += kThreads) {
-      const int grp = task / n, c = task - grp * n;
-      const float* src = in + grp * kRows * wp;
-      float acc[S][kRows];
+    // 2. affine layer j on the stacked streams: 4 rows (strided by nrg) x
+    //    4 columns per task
+    const float* sw = wbuf + (j & 1) * wsz;
+    const float* bl = B + (size_t)j * wp;
+    const int ncg = (n + 3) / 4;
+    for (int task = tid; task < nrg * ncg; task += kThreads) {
+      const int rg = task / ncg, c0 = 4 * (task - rg * ncg);
+      float acc[4][4];
 #pragma unroll
-      for (int s = 0; s < S; ++s)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[s][r] = 0.f;
+        for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+#pragma unroll 2
       for (int k = 0; k < wp; k += 4) {
-        const float w0 = sw[(k + 0) * n + c], w1 = sw[(k + 1) * n + c];
-        const float w2 = sw[(k + 2) * n + c], w3 = sw[(k + 3) * n + c];
+        float4 av[4];
 #pragma unroll
-        for (int s = 0; s < S; ++s) {
+        for (int i = 0; i < 4; ++i) av[i] = ld4(in + (rg + i * nrg) * wp + k);
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const float4 v =
-                *reinterpret_cast<const float4*>(src + s * plane + r * wp + k);
-            float t = acc[s][r];
-            t = fmaf(v.x, w0, t);
-            t = fmaf(v.y, w1, t);
-            t = fmaf(v.z, w2, t);
-            t = fmaf(v.w, w3, t);
-            acc[s][r] = t;
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 w4 = ld4(sw + (k + kk) * wp + c0);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float xv = comp(av[i], kk);
+            acc[i][0] = fmaf(xv, w4.x, acc[i][0]);
+            acc[i][1] = fmaf(xv, w4.y, acc[i][1]);
+            acc[i][2] = fmaf(xv, w4.z, acc[i][2]);
+            acc[i][3] = fmaf(xv, w4.w, acc[i][3]);
           }
         }
       }
-      const float bias = bl[c];
+      const float4 b4 = ld4(bl + c0);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[0][r] += bias;
-#pragma unroll
-      for (int s = 0; s < S; ++s)
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          out[s * plane + (grp * kRows + r) * wp + c] = acc[s][r];
+      for (int i = 0; i < 4; ++i) {
+        const int R = rg + i * nrg;
+        if (R < tm) {  // the h rows take the bias
+          acc[i][0] += b4.x;
+          acc[i][1] += b4.y;
+          acc[i][2] += b4.z;
+          acc[i][3] += b4.w;
+        }
+        st4(out + R * wp + c0,
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+      }
     }
     float* tmp = in;
     in = out;
@@ -222,7 +354,7 @@ pinn_mlp_fwd_kernel(const Params p) {
 
   __syncthreads();
   const int n_out = p.n_out;
-  for (int i = threadIdx.x; i < rows * n_out; i += kThreads) {
+  for (int i = tid; i < rows * n_out; i += kThreads) {
     const int r = i / n_out, c = i - r * n_out;
     const int li = r * wp + c;
     const size_t pt = (size_t)row0 + r;
@@ -237,6 +369,43 @@ pinn_mlp_fwd_kernel(const Params p) {
       }
     }
   }
+}
+
+size_t smem_bytes(int s, int tm, int wp) {
+  return kBarBytes +
+         (2 * (size_t)s * tm * wp + 2 * (size_t)wp * wp) * sizeof(float);
+}
+
+int blocks_by_smem(size_t smem) {
+  return (int)(kSmemSM / (smem + kSmemReserve));
+}
+
+// Rows per block: the multiple of 4 up to 32 whose grid takes the fewest
+// waves of resident blocks, weighed by the rows a block walks plus
+// kTileCost for what a block pays whatever its rows (the weights' copies,
+// the barriers): cost = waves * (tile_m + kTileCost).  Resident blocks per
+// SM: the launch bounds' guarantee (kMinBlocks, 2 above four streams) or
+// what shared memory allows, whichever is less.  0 when nothing fits.
+constexpr int kTileCost = 8;
+
+int pick_tile(int s, int wp, int n_sub, int n_pts, int sms) {
+  int best = 0;
+  long long best_cost = 0;
+  for (int tm = 4; tm <= 32; tm += 4) {
+    const size_t smem = smem_bytes(s, tm, wp);
+    if (smem > kSmemMax) break;
+    int bps = blocks_by_smem(smem);
+    const int regs_bps = s <= 4 ? kMinBlocks : 2;
+    if (bps > regs_bps) bps = regs_bps;
+    const long long blocks = (long long)n_sub * ((n_pts + tm - 1) / tm);
+    const long long slots = (long long)bps * sms;
+    const long long cost = (blocks + slots - 1) / slots * (tm + kTileCost);
+    if (best == 0 || cost < best_cost) {
+      best = tm;
+      best_cost = cost;
+    }
+  }
+  return best;
 }
 
 template <int ACT, int D_IN, int NS, bool SAVE>
@@ -279,6 +448,10 @@ cudaError_t by_d_in(int d_in, int ns, const Params& p, int n_sub, size_t smem,
   }
 }
 
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -293,6 +466,10 @@ int pinn_mlp_fwd(const void* x, const void* w, const void* b, const void* a,
       wp % 4 != 0 || n_layers < 0 || n_out <= 0 || n_out > wp ||
       n_sel < 0 || n_sel > d_in || (n_sel > 0 && d2u == nullptr))
     return (int)cudaErrorInvalidValue;
+  // the bulk copies of W, the float4 loads of b and the float4 spill
+  // stores need 16-byte aligned rows
+  if (!aligned16(w) || !aligned16(b) || (res != nullptr && !aligned16(res)))
+    return (int)cudaErrorMisalignedAddress;
   Params p;
   p.x = static_cast<const float*>(x);
   p.w = static_cast<const float*>(w);
@@ -316,20 +493,15 @@ int pinn_mlp_fwd(const void* x, const void* w, const void* b, const void* a,
     p.sel[k] = sel[k];
     p.slot[sel[k]] = k;
   }
-  // rows per block: the largest tile whose streams (double buffered) plus
-  // one weight matrix fit a block's shared memory
-  size_t smem = 0;
-  p.tile_m = 0;
-  const int tiles[] = {32, 16, 8, 4};
-  for (int tm : tiles) {
-    smem = (2 * (size_t)(1 + d_in + n_sel) * tm * wp + (size_t)wp * wp) *
-           sizeof(float);
-    if (smem <= kSmemMax) {
-      p.tile_m = tm;
-      break;
-    }
-  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int s = 1 + d_in + n_sel;
+  p.tile_m = pick_tile(s, wp, n_sub, n_pts, sms);
   if (p.tile_m == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(s, p.tile_m, wp);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (act) {
     case 0: return (int)by_d_in<0>(d_in, n_sel, p, n_sub, smem, st);

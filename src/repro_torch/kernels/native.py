@@ -47,14 +47,17 @@ def build(srcs=None) -> dict[str, dict]:
     """Compile every source whose library is missing, one ``nvcc`` process
     per source, all started together.  Returns ``{stem: {"path", "seconds",
     "log"}}`` (``log`` holds ``-Xptxas -v``'s register and shared-memory
-    report; ``seconds`` is 0 for a library that was already built).  Raises
-    ``RuntimeError`` with the compiler output when a build fails."""
+    report, kept beside the library as ``<library>.log`` and read back for a
+    library that was already built; ``seconds`` is 0 for such a library).
+    Raises ``RuntimeError`` with the compiler output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out, procs = {}, []
     for src in (sources() if srcs is None else [Path(s) for s in srcs]):
         lib = library_path(src)
         if lib.exists():
-            out[src.stem] = {"path": str(lib), "seconds": 0.0, "log": ""}
+            log = Path(str(lib) + ".log")
+            out[src.stem] = {"path": str(lib), "seconds": 0.0,
+                             "log": log.read_text() if log.exists() else ""}
             continue
         fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
         os.close(fd)
@@ -70,6 +73,7 @@ def build(srcs=None) -> dict[str, dict]:
             os.unlink(tmp)
             failures.append(f"{src.name}:\n{log}")
             continue
+        Path(str(lib) + ".log").write_text(log)
         os.replace(tmp, lib)   # atomic: a concurrent loader never sees half
         out[src.stem] = {"path": str(lib), "seconds": secs, "log": log}
     if failures:

@@ -219,7 +219,10 @@ def pinn_mlp_fwd2_res(x, w_stack, b_stack, a_vec, *, n_out: int,
     """K3, the training forward: (u, du, d2u, res) — K2's outputs plus the
     spills of the reverse sweep (module docstring).  ``d2_dirs=()`` keeps
     no second-order stream: d2u is zeros and the spills hold h and t only.
-    Same inputs and dispatch as :func:`pinn_mlp_fwd1`."""
+    Same inputs and dispatch as :func:`pinn_mlp_fwd1`.  On a card it is one
+    launch of ``csrc/pinn_mlp_fwd.cu`` (tiles of the rows sized to fill the
+    SMs in as few waves as it can; each layer's spills leave by 16-byte
+    stores while the next layer's weights arrive by a bulk copy)."""
     sel = _dirs(d2_dirs, x.shape[-1])
     if x.device.type == "cpu":
         return pinn_mlp_fwd2_res_plain(x, w_stack, b_stack, a_vec,
@@ -235,8 +238,11 @@ def pinn_mlp_bwd2(x, w_stack, a_vec, res, cu, cdu, cd2u, *, n_out: int,
     ā), shapes and padding as :func:`pinn_mlp_bwd2_plain`.  W̄, b̄ and ā are
     summed over each subdomain's points in a fixed order: two launches on
     the same inputs give bitwise equal results.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (the sweep and its reduction) or
-    raise."""
+    version; CUDA tensors launch the kernel or raise: the sweep of
+    ``csrc/pinn_mlp_bwd.cu`` (blocks owning contiguous row tiles, each
+    stage's spills and weights arriving by bulk copies a stage ahead, each
+    block's W̄/b̄/ā in its own slice of a partials buffer the wrapper
+    allocates) and its reduction (the slices in fixed groups of blocks)."""
     sel = _dirs(d2_dirs, x.shape[-1])
     if x.device.type == "cpu":
         return pinn_mlp_bwd2_plain(x, w_stack, a_vec, res, cu, cdu, cd2u,
@@ -247,9 +253,9 @@ def pinn_mlp_bwd2(x, w_stack, a_vec, res, cu, cdu, cd2u, *, n_out: int,
 
 # ------------------------------------------------------------------- launch
 
-@functools.cache
-def _library():
-    lib = native.load("pinn_mlp_fwd")
+def bind_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from ``pinn_mlp_fwd.cu``
+    (this checkout's, or another revision's for an A/B on the card)."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pinn_mlp_fwd.argtypes = [p] * 8 + [i] * 11 + [p]
     lib.pinn_mlp_fwd.restype = i
@@ -258,9 +264,8 @@ def _library():
     return lib
 
 
-@functools.cache
-def _library_bwd():
-    lib = native.load("pinn_mlp_bwd")
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The same for a library built from ``pinn_mlp_bwd.cu``."""
     p, i = ctypes.c_void_p, ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
     lib.pinn_mlp_bwd_plan.argtypes = [i] * 8 + [ip, ip]
@@ -272,6 +277,16 @@ def _library_bwd():
     lib.pinn_mlp_bwd_error_string.argtypes = [i]
     lib.pinn_mlp_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library():
+    return bind_fwd(native.load("pinn_mlp_fwd"))
+
+
+@functools.cache
+def _library_bwd():
+    return bind_bwd(native.load("pinn_mlp_bwd"))
 
 
 def _check_tensors(name, ref_t, **tensors):

@@ -228,6 +228,46 @@ def test_training_kernels_shapes_on_card(dev, width, depth, d_in, n):
         _leaf_close(g, p)
 
 
+@pytest.mark.parametrize("n_sub", [1, 4, 9])
+@pytest.mark.parametrize("width,depth,d_in,d2_dirs", [(24, 4, 2, (0,)),
+                                                      (36, 3, 3, None),
+                                                      (100, 3, 1, ())],
+                         ids=["w24", "w36", "w100"])
+def test_training_kernels_partition_edges_on_card(dev, width, depth, d_in,
+                                                  d2_dirs, n_sub):
+    """K3 and K4 at the edges of K4's partition: one row, a tile less one,
+    a tile, a tile and one (the tile from K4's plan on this card) and the
+    quickstart's 1120 rows, where blocks own unequal numbers of tiles;
+    widths 36 and 100 have odd numbers of 4-column groups.  K4 twice,
+    bitwise."""
+    import ctypes
+
+    sel = tuple(range(d_in)) if d2_dirs is None else d2_dirs
+    tile, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    assert pinn_mlp._library_bwd().pinn_mlp_bwd_plan(
+        n_sub, 1, d_in, width, depth, 1, 0, len(sel), ctypes.byref(tile),
+        ctypes.byref(blocks)) == 0
+    for n in sorted({1, tile.value - 1, tile.value, tile.value + 1, 1120}):
+        args = _packed(dev, n_sub=n_sub, n=n, d_in=d_in, width=width,
+                       depth=depth, n_out=1, seed=n)
+        got = pinn_mlp.pinn_mlp_fwd2_res(*args, n_out=1, d2_dirs=d2_dirs)
+        want = pinn_mlp.pinn_mlp_fwd2_res_plain(*args, n_out=1,
+                                                d2_dirs=d2_dirs)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        x, w, b, av = args
+        cts = _cotangents(dev, n_sub, n, d_in, 1, seed=n + 1)
+        kern = pinn_mlp.pinn_mlp_bwd2(x, w, av, got[3], *cts, n_out=1,
+                                      d2_dirs=d2_dirs)
+        plain = pinn_mlp.pinn_mlp_bwd2_plain(x, w, av, got[3], *cts,
+                                             n_out=1, d2_dirs=d2_dirs)
+        again = pinn_mlp.pinn_mlp_bwd2(x, w, av, got[3], *cts, n_out=1,
+                                       d2_dirs=d2_dirs)
+        for g, p, a in zip(kern, plain, again):
+            _leaf_close(g, p)
+            assert torch.equal(g, a)
+
+
 @pytest.mark.parametrize("bwd", ["fused", "ref"])
 def test_autograd_boundary_on_card_matches_cpu(dev, bwd):
     """torch.autograd.grad through ops.pinn_mlp_forward2 on the card (K3 +

@@ -16,9 +16,10 @@ Tolerance: the reference's per-leaf rule for the reverse sweep
 (``tests/test_kernels_pinn_mlp.py:330-335``), |got - want| <= 1e-5 * max(1,
 max |want|), in float32 where the frameworks sum in another order; 1e-10 on
 the same scale in float64 where only the last bits differ.  A torch twin of
-K4's blocked cross-block reduction (the part that differs from the TPU
-kernel) is checked against the unblocked sweep.  Inputs are drawn with
-numpy from a seed and handed to both packages.
+K4's summation order (row chunks, tiles, blocks in fixed groups: the part
+that differs from the TPU kernel) is checked against the unblocked sweep,
+and a Python twin of K4's launch plan against its invariants.  Inputs are
+drawn with numpy from a seed and handed to both packages.
 """
 import functools
 import zlib
@@ -228,36 +229,62 @@ def test_ref2_bwd_matches_autograd_f64(act, d2):
                     tol=1e-10)
 
 
-def _blocked_bwd(x, w, av, res, cts, act, d2, tile_m, n_blocks):
-    """Torch twin of K4's cross-block reduction: block b owns the
-    contiguous tiles [b*T/B, (b+1)*T/B) and adds each tile's W̄/b̄/ā into its
-    own partial in tile order; the partials are then summed in block order
-    (pinn_mlp_bwd.cu).  x̄ is per row."""
+REDUCE_GROUPS = 8   # pinn_mlp_bwd.cu's kGroups
+
+
+def _blocked_bwd(x, w, av, res, cts, act, d2, tile_m, n_blocks, ksplit=1):
+    """Torch twin of K4's summation order: block b owns the contiguous
+    tiles [b*T/B, (b+1)*T/B); within a tile the rows are cut into ``ksplit``
+    chunks [j*tm/ksplit, (j+1)*tm/ksplit) (every stream of them), each
+    chunk's W̄ summed apart (a thread's registers in the kernel) and the
+    chunks added in chunk order; each tile's W̄/b̄/ā goes into the block's
+    partial in tile order; the partials are then summed in REDUCE_GROUPS
+    contiguous groups of blocks, each in block order, and the groups' sums
+    in group order (pinn_mlp_bwd.cu).  x̄ is per row."""
     n = x.shape[1]
     n_tiles = -(-n // tile_m)
-    rows = lambda t, i: t[..., i * tile_m:(i + 1) * tile_m, :]
+    rows = lambda t, lo, hi: t[..., lo:min(hi, n), :]
     cx, parts = [], []
     for blk in range(n_blocks):
         part = None
         for tile in range(blk * n_tiles // n_blocks,
                           (blk + 1) * n_tiles // n_blocks):
-            sl = [rows(t, tile) for t in cts]
-            gx, *g = pinn_mlp.pinn_mlp_bwd2_plain(
-                rows(x, tile), w, av, rows(res, tile), *sl,
-                n_out=cts[0].shape[-1], act=act, d2_dirs=d2)
-            cx.append(gx)
-            part = g if part is None else [p + q for p, q in zip(part, g)]
+            tsum = None
+            for j in range(ksplit):
+                lo = tile * tile_m + j * tile_m // ksplit
+                hi = tile * tile_m + (j + 1) * tile_m // ksplit
+                if lo >= min(hi, n):
+                    continue
+                sl = [rows(t, lo, hi) for t in cts]
+                gx, *g = pinn_mlp.pinn_mlp_bwd2_plain(
+                    rows(x, lo, hi), w, av, rows(res, lo, hi), *sl,
+                    n_out=cts[0].shape[-1], act=act, d2_dirs=d2)
+                cx.append(gx)
+                tsum = g if tsum is None else [p + q for p, q in
+                                               zip(tsum, g)]
+            part = tsum if part is None else [p + q for p, q in
+                                              zip(part, tsum)]
         parts.append(part)
-    total = parts[0]
-    for p in parts[1:]:
-        total = [a + b for a, b in zip(total, p)]
+    total = None   # blocks in GROUPS contiguous groups, each in order
+    for g in range(REDUCE_GROUPS):
+        gsum = None
+        for p in parts[g * n_blocks // REDUCE_GROUPS:
+                       (g + 1) * n_blocks // REDUCE_GROUPS]:
+            gsum = p if gsum is None else [a + b for a, b in zip(gsum, p)]
+        if gsum is not None:
+            total = gsum if total is None else [a + b for a, b in
+                                                zip(total, gsum)]
     return [torch.cat(cx, dim=1)] + total
 
 
-@pytest.mark.parametrize("tile_m,n_blocks", [(8, 3), (4, 5), (32, 1)])
-def test_blocked_reduction_twin(tile_m, n_blocks):
-    """Per-block partials + a fixed-order sum match the unblocked sweep
-    within 1e-6 and are bitwise identical across two runs."""
+@pytest.mark.parametrize("tile_m,n_blocks,ksplit", [
+    pytest.param(8, 3, 1, id="8-3"), pytest.param(4, 5, 1, id="4-5"),
+    pytest.param(32, 1, 1, id="32-1"), (16, 7, 7), (16, 4, 8), (8, 13, 3),
+    (4, 26, 4)])
+def test_blocked_reduction_twin(tile_m, n_blocks, ksplit):
+    """Per-block partials of row-chunked tiles + fixed-order sums match the
+    unblocked sweep within 1e-6 and are bitwise identical across two
+    runs."""
     (x, Ws, bs, a), cts = _mlp(_seed("blocked", tile_m), 3, n=101)
     xt, Wt, bt, at = _t([x])[0], _t(Ws), _t(bs), _t([a])[0]
     w, b, av = ops.pack_mlp(Wt, bt, at)
@@ -266,11 +293,92 @@ def test_blocked_reduction_twin(tile_m, n_blocks):
     ct = _t(cts)
     want = pinn_mlp.pinn_mlp_bwd2_plain(xt, w, av, res, *ct, n_out=2,
                                         d2_dirs=(0,))
-    got = _blocked_bwd(xt, w, av, res, ct, "tanh", (0,), tile_m, n_blocks)
-    again = _blocked_bwd(xt, w, av, res, ct, "tanh", (0,), tile_m, n_blocks)
+    got = _blocked_bwd(xt, w, av, res, ct, "tanh", (0,), tile_m, n_blocks,
+                       ksplit)
+    again = _blocked_bwd(xt, w, av, res, ct, "tanh", (0,), tile_m, n_blocks,
+                         ksplit)
     for g, a2, wnt in zip(got, again, want):
         _leaf_close(g, wnt, tol=1e-6)
         assert torch.equal(g, a2)
+
+
+# Python twin of pinn_mlp_bwd.cu's plan (pick_split, smem_bytes, pick_tile,
+# pinn_mlp_bwd_plan, part_len): H100 shared memory per SM and per block
+K4_THREADS, K4_MIN_BLOCKS, K4_MAX_SPLIT = 256, 2, 8
+SMEM_SM, SMEM_BLOCK, SMEM_RESERVE = 233472, 232448, 1024
+
+
+def _k4_split(s, tm, wp):
+    nq = wp // 4
+    n_mt = nq * nq
+    n3 = s * tm // 4 * nq
+    return next((k for k in range(min(K4_MAX_SPLIT, tm), 1, -1)
+                 if -(-n_mt * k // 32) * 32 + n3 <= K4_THREADS), 1)
+
+
+def _k4_smem(s, tm, wp):
+    plane, wsz = tm * wp, wp * wp
+    ks = _k4_split(s, tm, wp)
+    return 16 + 4 * (2 * (s * plane + wsz) + 3 * s * plane
+                     + (ks * wsz if ks > 1 else 0) + K4_THREADS // 32
+                     + 3 * tm + 3 * wp)
+
+
+def _k4_tile(s, wp):
+    for tm in (12, 8, 4):
+        if SMEM_SM // (_k4_smem(s, tm, wp) + SMEM_RESERVE) >= K4_MIN_BLOCKS:
+            return tm
+    return next((tm for tm in (12, 8, 4)
+                 if _k4_smem(s, tm, wp) <= SMEM_BLOCK), 0)
+
+
+def _k4_plan(n_sub, n_pts, s, wp, sms, per_sm):
+    """(tile rows, blocks per subdomain) for ``per_sm`` resident blocks."""
+    tm = _k4_tile(s, wp)
+    n_tiles = -(-n_pts // tm)
+    return tm, min(n_tiles, -(-per_sm * sms // n_sub))
+
+
+def _k4_part_len(L, wp):
+    return -(-((L + 1) * (wp * wp + wp + 1)) // 4) * 4
+
+
+@pytest.mark.parametrize("wp", [20, 24, 36, 80, 100, 128])
+@pytest.mark.parametrize("s", [2, 4, 7])
+def test_k4_plan_twin(s, wp):
+    """The plan's twin: every shape fits a block's shared memory, two
+    blocks fit an SM up to width 80, no block walks more than one tile
+    beyond another, and the partials' slice is the W̄/b̄/ā stacks padded
+    to 16 bytes."""
+    tm = _k4_tile(s, wp)
+    assert tm in (12, 8, 4) and _k4_smem(s, tm, wp) <= SMEM_BLOCK
+    if wp <= 80:
+        assert SMEM_SM // (_k4_smem(s, tm, wp) + SMEM_RESERVE) >= 2
+    nq, ks = wp // 4, _k4_split(s, tm, wp)
+    n_mt = nq * nq
+    assert -(-n_mt * ks // 32) * 32 + s * tm // 4 * nq <= K4_THREADS \
+        or ks == 1
+    for n_sub, n_pts in ((1, 1), (4, 1120), (9, 17), (4, tm - 1), (4, tm),
+                         (4, tm + 1), (2, 100_000)):
+        for per_sm in (1, 2, 3):
+            tm_, blocks = _k4_plan(n_sub, n_pts, s, wp, 132, per_sm)
+            n_tiles = -(-n_pts // tm_)
+            walks = [(b + 1) * n_tiles // blocks - b * n_tiles // blocks
+                     for b in range(blocks)]
+            assert sum(walks) == n_tiles and min(walks) >= 1
+            assert max(walks) - min(walks) <= 1
+    L = 4
+    n = (L + 1) * (wp * wp + wp + 1)
+    assert _k4_part_len(L, wp) % 4 == 0 and 0 <= _k4_part_len(L, wp) - n < 4
+    (x, Ws, bs, a), cts = _mlp(_seed("plan", wp), 1, width=wp, depth=L,
+                               n=5)
+    w, b, av = ops.pack_mlp(_t(Ws), _t(bs), _t([a])[0])
+    *_, res = pinn_mlp.pinn_mlp_fwd2_res(_t([x])[0], w, b, av, n_out=2,
+                                         d2_dirs=(0,))
+    _, cw, cb, ca = pinn_mlp.pinn_mlp_bwd2_plain(_t([x])[0], w, av, res,
+                                                 *_t(cts), n_out=2,
+                                                 d2_dirs=(0,))
+    assert cw[0].numel() + cb[0].numel() + ca[0].numel() == n
 
 
 def test_cpu_tensors_take_plain_training_versions_and_k4_checks():
