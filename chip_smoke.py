@@ -52,7 +52,23 @@ any of them ends the run with a non-zero exit code and no result line:
    three chunks of 100 steps and split into forward kernel, backward kernel
    and everything else, and torch.profiler traces 20 steady steps: device
    busy ms, idle share, K3's and K4's device ms;
-6. **lm kernels** — hold K5 (flash attention) against its plain version on
+6. **runtime** — the fault-tolerant runtime (``repro_torch.runtime``) on
+   the card, each run with the counts set to 0 just before and read just
+   after: (a) ``quickstart.main(... --supervised --inject
+   crash@1,nan_params@2:0,straggler@3*0.1)``, 1500 steps in chunks of 250,
+   must report 1 crash, 1 guard trip, 2 restarts and 1 straggler, reach
+   rel-L2 < 0.5, and launch K3 and K4 once per step of every chunk attempt
+   (committed chunks plus rollbacks, each a whole chunk: the guarded chunk
+   keeps computing frozen steps after a trip) with no plain version on a
+   CUDA tensor; (b) a supervised 3 x 100-step run with a crash after chunk
+   1 equals three uninterrupted chunks exactly (params and Adam moments,
+   difference 0.0); (c) (a)'s checkpoint resumed at nx = 3 (4 -> 6
+   subdomains) is a better start than a cold init, and 500 more supervised
+   steps reach rel-L2 < 0.5; (d) ``serve_field.main --demo cart
+   --max-requests 40 --faults engine-raise@3,nan-output@5,
+   slow-engine@7*0.05`` at order 2 (K2) and order 1 (K1) answers every
+   admitted ticket.  One ``{"runtime": ...}`` line;
+7. **lm kernels** — hold K5 (flash attention) against its plain version on
    the card: float32 (rtol = atol = 2e-5, the CUDA-core kernel) and bf16
    (both outputs bf16, rtol = atol = 1e-2, the tensor-core kernel: by TMA
    at head dims 64 and 128, by element loads at 100), heads H/Hk 32/8,
@@ -64,13 +80,13 @@ any of them ends the run with a non-zero exit code and no result line:
    reference's bound): P 16, 64, 128, T in {1, 5, 17, 31, 33, 256, 1000}
    (B = 2) and T = 99 at B = 3, w from U(0.2, 0.98), a strong decay
    w = 0.05 and a near-1 decay w ~ exp(-e^-6) (the init's decay_bias);
-7. **lm timing** — K5 at llama3.2-1b's per-layer prefill shape (B = 1,
+8. **lm timing** — K5 at llama3.2-1b's per-layer prefill shape (B = 1,
    H = 32, Hk = 8, dh = 64, bf16, causal) at S = T = 4096 and 32768, beside
    its plain version and PyTorch's ``scaled_dot_product_attention`` on the
    same tensors (timed only; the port never calls it); K6 at rwkv6-3b's
    per-layer shape (B = 1, T = 4096, H = 40, P = 64, float32) beside its
    plain version;
-8. **llm** — llama3.2-1b and rwkv6-3b at their published width and depth,
+9. **llm** — llama3.2-1b and rwkv6-3b at their published width and depth,
    weights drawn from a seed on the card: prefill (B = 2, S = 1024 /
    B = 1, T = 1024) through the kernels with the launch counts set to 0 just
    before and read just after (exactly n_layers K5 or K6 wrapper calls,
@@ -82,11 +98,11 @@ any of them ends the run with a non-zero exit code and no result line:
    llama through the float32 K5 kernel, one launch per layer), and 16 decode
    steps held against the float32 prefill (2e-3 of max |logit|, the
    reference's bound);
-9. **llm serve** — ``repro_torch.launch.serve.main`` serves each of them at
+10. **llm serve** — ``repro_torch.launch.serve.main`` serves each of them at
    full size (``--no-reduced --batch 4 --prompt-len 16 --gen 16``), twice
    (the first run pays the card's first-use costs): a (4, 32) token array,
    its tokens/s printed;
-10. **report** — one ``{"kernels": [...]}`` line (K1-K6), the card's name
+11. **report** — one ``{"kernels": [...]}`` line (K1-K6), the card's name
    and power limit from ``nvidia-smi``, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Each phase prints its seconds.
@@ -983,6 +999,201 @@ def train_phase(dev) -> dict:
     return {"launches": counts, "step_ms": step_ms}
 
 
+# ------------------------------------------------------------------- runtime
+
+def _counted(fn, *args):
+    """Run ``fn`` with the PINN kernels' counts set to 0 just before and
+    read just after: (result, seconds, launches, plain calls on CUDA)."""
+    from repro_torch.kernels import pinn_mlp as K
+
+    buf = io.StringIO()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args)
+    secs = time.perf_counter() - t0
+    return res, buf.getvalue(), secs, dict(K.launches), dict(K.plain_calls)
+
+
+def _quickstart_trainer(dev, nx):
+    """The quickstart's trainer at nx x 2 subdomains on ``dev``."""
+    from repro_torch.core import (Burgers1D, CartesianDecomposition, DDConfig,
+                                  ReferenceTrainer, XPINN, build_topology)
+    from repro_torch.core.nets import MLPConfig, SubdomainModelConfig
+
+    dec = CartesianDecomposition(((-1, 1), (0, 1)), nx, 2)
+    topo = build_topology(dec, n_iface=20)
+    cfg = SubdomainModelConfig(nets={"u": MLPConfig(2, 1, 24, 4)})
+    tr = ReferenceTrainer(Burgers1D(), cfg, topo,
+                          DDConfig(method=XPINN, residual_path="fused"),
+                          lrs=2e-3, device=dev)
+    return tr, dec
+
+
+def runtime_phase(dev) -> dict:
+    """The fault-tolerant runtime on the card: (a) the supervised quickstart
+    under the fault matrix, (b) bitwise crash recovery, (c) elastic resume
+    4 -> 6 subdomains, (d) field serving under the serve fault matrix."""
+    import torch
+    from repro_torch.core import evaluate_l2
+    from repro_torch.core.nets import tree_leaves
+    from repro_torch.launch import quickstart, serve_field
+    from repro_torch.runtime import (Fault, FaultInjector, Supervisor,
+                                     SupervisorConfig, elastic_resume)
+
+    t_phase = time.perf_counter()
+    out = {"card": _smi()}
+    k3, k4 = "pinn_mlp_fwd2_res", "pinn_mlp_bwd2"
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) supervised quickstart under crash, NaN and straggler faults
+        ck = os.path.join(tmp, "ck")
+        steps, chunk = 1500, 250
+        spec = "crash@1,nan_params@2:0,straggler@3*0.1"
+        rc, text, secs, counts, plain = _counted(quickstart.main, [
+            "--device", "cuda", "--steps", str(steps), "--chunk", str(chunk),
+            "--supervised", "--ckpt", ck, "--inject", spec])
+        rep = json.loads(text.strip().splitlines()[-1])["quickstart"]
+        sup = rep["supervisor"]
+        check(rc == 0, f"supervised quickstart exited {rc}")
+        check((sup["crashes"], sup["guard_trips"], sup["restarts"],
+               sup["stragglers"]) == (1, 1, 2, 1), f"supervisor {sup}")
+        check(rep["rel_l2"] < 0.5, f"supervised rel-L2 {rep['rel_l2']:.4f}")
+        # every attempt ran a whole chunk (250 divides 1500): the committed
+        # ones and the two rolled back, whose guarded chunk went on through
+        # frozen steps after the trip
+        attempts = sup["chunks"] + sup["restarts"]
+        check(attempts == 8, f"{attempts} chunk attempts, expected 8")
+        for k in (k3, k4):
+            check(counts[k] == attempts * chunk,
+                  f"{k}: {counts[k]} launches for {attempts} attempts x "
+                  f"{chunk} steps")
+        check(counts["pinn_mlp_fwd1"] > 0, "rel-L2 evaluation never ran K1")
+        check(not any(plain.values()), f"plain versions on CUDA: {plain}")
+        out["supervised"] = {
+            "argv_inject": spec, "steps": steps, "chunk": chunk,
+            "seconds": secs, "rel_l2": rep["rel_l2"], "attempts": attempts,
+            "committed_steps_per_s": [chunk / w for w in sup["walltimes"]],
+            "supervisor": sup, "launches": counts,
+            "plain_calls_on_cuda": plain}
+
+        # (b) crash recovery is bitwise on the card
+        def crash_and_replay():
+            tr, b = _train_setup(dev)
+            s = Supervisor(tr, os.path.join(tmp, "ck_b"),
+                           SupervisorConfig(chunk_steps=100),
+                           FaultInjector([Fault(chunk=1, kind="crash")]))
+            s_f, report = s.run(tr.init(SEED), b, 300)
+            s_b = tr.init(SEED)
+            for _ in range(3):
+                s_b, _ = tr.run_chunk(s_b, b, 100)
+            diff = max(float((x - y).abs().max()) for x, y in zip(
+                tree_leaves((s_f.params, s_f.opt["m"], s_f.opt["v"])),
+                tree_leaves((s_b.params, s_b.opt["m"], s_b.opt["v"]))))
+            same = (int(s_f.step) == int(s_b.step) == 300
+                    and int(s_f.opt["count"]) == int(s_b.opt["count"]))
+            return report, diff, same, s_f.params["u"]["W"][0].is_cuda
+
+        (report, diff, same, on_card), _, secs, counts, plain = _counted(
+            crash_and_replay)
+        check(report.crashes == 1 and report.chunks == 3,
+              f"crash run: {report.as_dict()}")
+        check(on_card and same, "crash run: state off the card or steps "
+                                "differ")
+        check(diff == 0.0, f"crash recovery differs by {diff:.3e} on the "
+                           "card (must be bitwise)")
+        # 4 supervised attempts + 3 uninterrupted chunks of 100 steps
+        check(counts[k3] == counts[k4] == 700, f"crash run launches {counts}")
+        check(not any(plain.values()), f"plain versions on CUDA: {plain}")
+        out["bitwise_recovery"] = {
+            "steps": 300, "chunk": 100, "max_abs_diff": diff,
+            "recovery_s": report.recovery_s, "seconds": secs,
+            "launches": counts}
+
+        # what the guard costs: ms per step of guarded and plain chunks of
+        # 100 steps from one state, in turns (guarded, plain, plain,
+        # guarded), then 20 steps of each under the profiler
+        tr, b = _train_setup(dev)
+        st, _ = tr.run_chunk(tr.init(SEED), b, 20)          # warm-up
+        chunks = {"guarded": lambda n: tr.run_chunk_guarded(st, b, n),
+                  "plain": lambda n: tr.run_chunk(st, b, n)}
+        turns = {"guarded": [], "plain": []}
+        for kind in ("guarded", "plain", "plain", "guarded"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chunks[kind](100)
+            torch.cuda.synchronize()
+            turns[kind].append((time.perf_counter() - t0) * 1e3 / 100)
+        cost = {"ms_per_step": turns}
+        for kind, run in chunks.items():
+            split = _device_split(lambda: run(20), TRAIN_KERNELS)
+            cost[kind] = {
+                "device_events_per_step": split["device_events"] / 20,
+                "device_busy_ms_per_step": split["device_busy_ms"] / 20,
+                "profiled_wall_ms_per_step": split["profiled_wall_ms"] / 20,
+                "top": split["top"]}
+        out["guard_cost"] = cost
+
+        # (c) elastic resume of (a)'s checkpoint at 3 x 2 subdomains
+        def warm_cold():
+            tr6, dec6 = _quickstart_trainer(dev, 3)
+            resumed, meta = elastic_resume(ck, tr6, dec6)
+            l2 = lambda p: evaluate_l2(dec6, tr6.model_cfg, p, tr6.act_codes,
+                                       tr6.pde, device=dev)
+            return (l2(resumed.params), l2(tr6.init(SEED).params),
+                    meta["supervisor"]["decomp"]["n_sub"], int(resumed.step))
+
+        (warm, cold, n_old, at), _, _, _, _ = _counted(warm_cold)
+        check(n_old == 4 and at == steps, f"resumed n_sub {n_old} step {at}")
+        check(warm < cold, f"warm start {warm:.4f} not better than cold "
+                           f"{cold:.4f}")
+        more = 500
+        rc, text, secs, counts, plain = _counted(quickstart.main, [
+            "--device", "cuda", "--nx", "3", "--steps", str(steps + more),
+            "--chunk", str(chunk), "--supervised", "--resume", ck,
+            "--ckpt", os.path.join(tmp, "ck6")])
+        rep = json.loads(text.strip().splitlines()[-1])["quickstart"]
+        check(rc == 0, f"elastic quickstart exited {rc}")
+        check(rep["resumed"]["n_sub_from"] == 4 and
+              rep["resumed"]["n_sub"] == 6, f"resume {rep['resumed']}")
+        check(rep["rel_l2"] < 0.5, f"elastic rel-L2 {rep['rel_l2']:.4f}")
+        for k in (k3, k4):
+            check(counts[k] == more, f"elastic {k}: {counts[k]} launches")
+        check(not any(plain.values()), f"plain versions on CUDA: {plain}")
+        out["elastic"] = {"n_sub": [4, 6], "rel_l2_warm": warm,
+                          "rel_l2_cold": cold, "steps_more": more,
+                          "rel_l2": rep["rel_l2"], "seconds": secs,
+                          "launches": counts}
+
+    # (d) field serving under the serve fault matrix, order 2 (K2), 1 (K1)
+    faults = "engine-raise@3,nan-output@5,slow-engine@7*0.05"
+    out["serve"] = []
+    for order, kernel in ((2, "pinn_mlp_fwd2"), (1, "pinn_mlp_fwd1")):
+        argv = ["--demo", "cart", "--device", "cuda", "--max-requests", "40",
+                "--order", str(order), "--faults", faults]
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc, text, secs, counts, plain = _counted(serve_field.main, argv)
+        report = json.loads(text[text.index("{"):])
+        check(rc == 0, f"serve_field --faults --order {order} exited {rc}")
+        check(report["drained"]["unanswered"] == 0,
+              f"order {order}: unanswered tickets under faults")
+        check(sum(report["by_status"].values()) == report["requests"],
+              f"order {order}: statuses {report['by_status']}")
+        check(counts[kernel] > 0, f"order {order}: {kernel} never launched")
+        check(not any(plain.values()), f"plain versions on CUDA: {plain}")
+        st = report["stats"]
+        out["serve"].append({
+            "order": order, "faults": faults, "seconds": secs,
+            "requests": report["requests"], "by_status": report["by_status"],
+            "goodput": report["goodput"], "p50_s": report["p50_s"],
+            "p99_s": report["p99_s"], "guard_trips": st["guard_trips"],
+            "flush_failures": st["flush_failures"], "retries": st["retries"],
+            "launches": counts})
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"runtime": out})
+    return out
+
+
 # ---------------------------------------------------------------- LLM kernels
 
 def _allclose(got, want, tol) -> float:
@@ -1409,6 +1620,7 @@ def main(argv=None) -> int:
         "step_ms": train["step_ms"], "forward_kernel_ms": t3["ms"],
         "backward_kernel_ms": t4["ms"],
         "other_ms": train["step_ms"] - t3["ms"] - t4["ms"]}})
+    phase("runtime", runtime_phase, dev)
     worst.update(phase("lm kernels", lm_sweep, dev))
     times.update(phase("lm timing", lm_timing, dev))
     launches.update(phase("llm", llm_phase, dev))

@@ -319,9 +319,13 @@ class Euler1D(PDE):
     d2_dirs = ()  # first-order system: the bundle's d2u is never consumed
 
     def _flux_x(self, U):
+        # constants as tensors of U's dtype: inside torch.func.jvp a Python
+        # float combined with a 0-dim slice (one point's U) gives a float64
+        # tangent; the forward values are the same either way
+        c = U.new_tensor
         rho = U[..., 0]
-        u = U[..., 1] / (rho + 1e-8)
-        p = (self.gamma - 1.0) * (U[..., 2] - 0.5 * rho * u * u)
+        u = U[..., 1] / (rho + c(1e-8))
+        p = c(self.gamma - 1.0) * (U[..., 2] - c(0.5) * rho * u * u)
         return torch.stack([U[..., 1], U[..., 1] * u + p, u * (U[..., 2] + p)],
                            dim=-1)
 

@@ -1,18 +1,32 @@
 """Quickstart: solve viscous Burgers with a space-time XPINN (paper §7.5).
 
-Counterpart of the reference's ``examples/quickstart.py`` (its unsupervised
-part): decompose (-1, 1) x (0, 1) into nx x nt space-time subdomains, one
-network each (``MLPConfig(2, 1, 24, 4)``), train with Adam (lr 2e-3) in
-chunks of outer steps, and validate against the Cole-Hopf exact solution
-(rel-L2 < 0.5, the reference's bar).
+Counterpart of the reference's ``examples/quickstart.py``: decompose
+(-1, 1) x (0, 1) into nx x nt space-time subdomains, one network each
+(``MLPConfig(2, 1, 24, 4)``), train with Adam (lr 2e-3) in chunks of outer
+steps, and validate against the Cole-Hopf exact solution (rel-L2 < 0.5, the
+reference's bar).
 
     PYTHONPATH=src python -m repro_torch.launch.quickstart [--steps 1500]
+
+With ``--supervised`` the run goes through the fault-tolerant chunk
+supervisor (:mod:`repro_torch.runtime`): guarded chunks checkpointed to
+``--ckpt``, crash/NaN recovery, and ELASTIC ``--resume`` — a checkpoint taken
+at one ``--nx/--nt`` restarts at another via nearest-centroid parameter
+adoption.  ``--inject`` drives the fault matrix (storage faults such as
+``ckpt.bit_flip@2`` compose with it)::
+
+    PYTHONPATH=src python -m repro_torch.launch.quickstart --supervised \
+        --ckpt /tmp/ck --inject 'crash@1,nan_params@2:0,straggler@3*0.1'
+    PYTHONPATH=src python -m repro_torch.launch.quickstart --supervised \
+        --ckpt /tmp/ck6 --nx 3 --resume /tmp/ck --steps 2000
 
 It runs on the CUDA card (the fused path launches the K3 forward and the K4
 reverse sweep once per step, and the rel-L2 check the K1 kernel through the
 serving engine) unless ``--device cpu`` is given.  Prints one line per chunk
-(step, loss, rel-L2, steps/s over the chunk's training) and, last, one JSON
-object with the per-chunk rows and the final rel-L2.
+(step, loss, rel-L2, steps/s over the chunk's training; under
+``--supervised`` the supervisor's events instead) and, last, one JSON
+object with the final rel-L2 and the per-chunk rows or, under
+``--supervised``, the supervisor's report.
 """
 from __future__ import annotations
 
@@ -39,6 +53,54 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _supervised(args, trainer, decomp, state, b, l2) -> int:
+    """Train under the chunk supervisor (``--supervised``)."""
+    from repro_torch.runtime import (ChaosInjector, Supervisor,
+                                     SupervisorConfig, elastic_resume,
+                                     parse_faults)
+
+    resumed = None
+    if args.resume:
+        state, meta = elastic_resume(args.resume, trainer, decomp)
+        sig = (meta.get("supervisor") or {}).get("decomp") or {}
+        resumed = {"from": args.resume, "step": int(state.step),
+                   "n_sub_from": sig.get("n_sub", decomp.n_sub),
+                   "n_sub": decomp.n_sub}
+        print(f"[quickstart] elastic resume from {args.resume} at step "
+              f"{resumed['step']} (checkpoint n_sub={resumed['n_sub_from']} "
+              f"-> {decomp.n_sub})")
+    chunk = max(args.chunk, 1)
+    cfg_sup = SupervisorConfig(
+        chunk_steps=chunk,
+        ckpt_every_chunks=(max(1, args.save_every // chunk)
+                           if args.save_every else 1))
+    # ChaosInjector so storage faults (ckpt.bit_flip@2, ...) compose with
+    # the compute matrix in the same --inject spec; without any it behaves
+    # exactly like the plain FaultInjector
+    injector = (ChaosInjector(parse_faults(args.inject),
+                              roots={"ckpt": args.ckpt})
+                if args.inject else None)
+    sup = Supervisor(trainer, args.ckpt, cfg_sup, injector, decomp=decomp)
+    state, report = sup.run(state, b, args.steps)
+    for ev in report.events:
+        print(f"[supervisor] {ev}")
+    print(f"[supervisor] chunks={report.chunks} restarts={report.restarts}"
+          f" crashes={report.crashes} guard_trips={report.guard_trips} "
+          f"stragglers={report.stragglers} corruptions={report.corruptions}")
+    err = l2(state)
+    print(f"[quickstart] final rel L2 error vs Cole-Hopf exact: {err:.4f}")
+    rep = report.as_dict()
+    summary = {k: v for k, v in rep.items() if isinstance(v, int)}
+    summary.update(walltimes=rep["walltimes"], recovery_s=rep["recovery_s"],
+                   events=rep["events"])
+    print(json.dumps({"quickstart": {
+        "device": str(trainer.device), "path": args.path,
+        "steps": int(state.step), "rel_l2": err,
+        "resumed": resumed, "supervisor": summary}}))
+    assert err < BAR, "did not converge"
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=1500)
@@ -55,10 +117,22 @@ def main(argv=None) -> int:
                     help="checkpoint directory for --save-every")
     ap.add_argument("--resume", default=None, metavar="DIR",
                     help="resume from the latest checkpoint under DIR")
+    ap.add_argument("--supervised", action="store_true",
+                    help="route training through the fault-tolerant chunk "
+                         "supervisor: checkpoints to --ckpt, recovers crashes "
+                         "and NaN divergence, and makes --resume ELASTIC (the "
+                         "checkpoint may have been taken at a different "
+                         "--nx/--nt)")
+    ap.add_argument("--inject", default=None, metavar="SPEC",
+                    help="fault schedule for --supervised: comma-separated "
+                         "kind@chunk[:subdomain][*delay] items, e.g. "
+                         "'crash@1,nan_params@2:0,straggler@3*0.5'")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "versions of the kernels)")
     args = ap.parse_args(argv)
+    if args.inject and not args.supervised:
+        ap.error("--inject requires --supervised")
 
     pde = Burgers1D()
     decomp = CartesianDecomposition(((-1, 1), (0, 1)), args.nx, args.nt)
@@ -77,13 +151,16 @@ def main(argv=None) -> int:
     dev = trainer.device
     state = trainer.init(0)
     done = 0
-    if args.resume:
+    if args.resume and not args.supervised:
         state = restore_train_state(args.resume, state)
         done = int(state.step)
         print(f"[quickstart] resumed from {args.resume} at step {done}")
     b = batch.device_arrays(dev)
     l2 = lambda st: evaluate_l2(decomp, model_cfg, st.params,
                                 trainer.act_codes, pde, device=dev)
+
+    if args.supervised:
+        return _supervised(args, trainer, decomp, state, b, l2)
 
     rows = []
     while done < args.steps:

@@ -22,9 +22,10 @@ the production lifecycle:
   serving.
 
 The engine runs on ``--device`` (default ``cuda``; it raises when no card is
-present — pass ``--device cpu`` to serve on the CPU).  The reference's
-``--faults`` injection needs the runtime fault matrix, which this package
-does not have yet.
+present — pass ``--device cpu`` to serve on the CPU).  ``--faults`` wraps
+the engine in :class:`~repro_torch.runtime.FaultyEngine`: a dispatch-indexed
+serve fault schedule (``engine-raise@3,nan-output@5,slow-engine@7*0.05``)
+that the resilience layer must absorb.
 
 Exit code 0 iff every admitted ticket was answered (the resilience
 invariant).
@@ -276,6 +277,10 @@ def main(argv=None) -> int:
     ap.add_argument("--queue-points", type=int, default=1 << 20)
     ap.add_argument("--queue-age", type=float, default=0.02,
                     help="flush once the queue head is this old (s)")
+    ap.add_argument("--faults", default=None,
+                    help="serve fault matrix, e.g. "
+                         "'engine-raise@3,nan-output@5,slow-engine@7*0.2,"
+                         "compile-storm@9'")
     ap.add_argument("--heartbeat", type=float, default=1.0)
     ap.add_argument("--status-file", default=None,
                     help="atomically published health JSON for probes")
@@ -307,13 +312,19 @@ def main(argv=None) -> int:
     obs = make_obs(args.obs_jsonl or None, clock=time.monotonic,
                    run_id=f"serve-{args.seed}",
                    config={"rate": args.rate, "duration": args.duration,
-                           "order": cfg.order, "device": args.device},
+                           "order": cfg.order, "device": args.device,
+                           "faults": args.faults},
                    trace=not args.no_trace, trace_sample=args.trace_sample)
     try:
         # the engine shares the obs so its serve.engine/* metrics land in the
         # same registry and its span nests under the frontend's microbatch
         # span
         engine = FieldEngine(bundle, device=args.device, obs=obs)
+        if args.faults:
+            from repro_torch.runtime import (FaultInjector, FaultyEngine,
+                                             parse_faults)
+            engine = FaultyEngine(engine,
+                                  FaultInjector(parse_faults(args.faults)))
         fe = ResilientFrontend(engine, cfg, seed=args.seed, obs=obs)
         sampler = _cloud_sampler(bundle.decomp, args.seed)
         fe.query(sampler())   # warmup (kernel build/load) outside the traffic

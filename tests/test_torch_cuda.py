@@ -291,6 +291,43 @@ def test_autograd_boundary_on_card_matches_cpu(dev, bwd):
         _leaf_close(got, want)
 
 
+def test_supervised_crash_recovery_bitwise_on_card(dev, tmp_path):
+    """The runtime on the card: a crash after chunk 1 rolls back to the
+    checkpoint and replays through K3/K4, and the result equals three
+    uninterrupted chunks bit for bit (params and Adam moments)."""
+    from repro_torch.core import (DDConfig, ReferenceTrainer, XPINN,
+                                  build_topology)
+    from repro_torch.core.nets import tree_leaves
+    from repro_torch.data import make_batch
+    from repro_torch.runtime import (Fault, FaultInjector, Supervisor,
+                                     SupervisorConfig)
+
+    pde = Burgers1D()
+    dec = CartesianDecomposition(((-1, 1), (0, 1)), 2, 2)
+    topo = build_topology(dec, n_iface=8)
+    cfg = SubdomainModelConfig(nets={"u": MLPConfig(2, 1, 16, 2)})
+    tr = ReferenceTrainer(pde, cfg, topo,
+                          DDConfig(method=XPINN, residual_path="fused"),
+                          device=dev)
+    b = make_batch(dec, topo, pde, n_res=48, n_bnd=16,
+                   rng=np.random.default_rng(0)).device_arrays(dev)
+    before = pinn_mlp.launches["pinn_mlp_bwd2"]
+    sup = Supervisor(tr, str(tmp_path / "ckpt"),
+                     SupervisorConfig(chunk_steps=3),
+                     FaultInjector([Fault(chunk=1, kind="crash")]),
+                     decomp=dec)
+    s_f, report = sup.run(tr.init(0), b, 9)
+    assert report.crashes == 1 and report.chunks == 3
+    assert pinn_mlp.launches["pinn_mlp_bwd2"] == before + 12  # 4 attempts
+    s_b = tr.init(0)
+    for _ in range(3):
+        s_b, _ = tr.run_chunk(s_b, b, 3)
+    assert s_f.params["u"]["W"][0].is_cuda
+    for x, y in zip(tree_leaves((s_f.params, s_f.opt)),
+                    tree_leaves((s_b.params, s_b.opt))):
+        assert torch.equal(x, y)
+
+
 # ------------------------------------------------------------ LLM kernels
 
 def _qkv(dev, B, S, T, H, Hk, dh, dtype, seed, heads_first=False):

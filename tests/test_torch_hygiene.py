@@ -50,7 +50,9 @@ def test_scan_sees_the_whole_port():
                  "core/trainer.py", "core/losses.py", "core/halo.py",
                  "data/points.py", "optim/adam.py", "launch/quickstart.py",
                  "models/causal_lm.py", "kernels/flash_attention.py",
-                 "kernels/wkv6.py", "launch/serve.py"):
+                 "kernels/wkv6.py", "launch/serve.py",
+                 "runtime/failures.py", "runtime/chaos.py",
+                 "runtime/elastic.py", "runtime/supervisor.py"):
         assert must in names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core") and not _forbidden("jaxtyping_x")
