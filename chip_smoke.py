@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--out results.json]
     python3 chip_smoke.py --ab DIR   # K3/K4 against DIR's sources, in turns
+    python3 chip_smoke.py --only distributed   # build + phase 7 only
 
 Run from the root of a checkout.  With ``--ab DIR`` only the build and an
 A/B runs: this checkout's K3 and K4 and the ones built from
@@ -68,7 +69,31 @@ any of them ends the run with a non-zero exit code and no result line:
    --max-requests 40 --faults engine-raise@3,nan-output@5,
    slow-engine@7*0.05`` at order 2 (K2) and order 1 (K1) answers every
    admitted ticket.  One ``{"runtime": ...}`` line;
-7. **lm kernels** — hold K5 (flash attention) against its plain version on
+7. **distributed** — Algorithm 1 with one rank per subdomain: 4 ``gloo``
+   ranks (``repro_torch.launch.mesh``) share the card, each launch count
+   set to 0 just before and read just after each step on every rank, the
+   ranks' counts sent back to this process: (a) the quickstart problem
+   for 10 steps from one init, gathered, within 1e-5 (params) and 1e-4
+   relative (summed loss) of ``ReferenceTrainer`` on the card; (b) 1500
+   steps in chunks of 250 to rel-L2 < 0.5 (``evaluate_l2`` on rank 0,
+   K1) with exactly 1500 K3 and 1500 K4 launches per rank and no plain
+   version on a CUDA tensor, then chunks of 100 steps with the exchange
+   on and off in turns (on, off, off, on: ms per step, compute and
+   communication), the bytes staged through the host per step, the
+   ``dd-comp-forward`` / ``dd-comm-halo`` / ``dd-comp-update`` scopes of
+   20 steps under torch.profiler on rank 0, and the single-process
+   trainer's ms per step after the group; (c) ``DataParallelTrainer`` on
+   4 workers, no compression, int8 and top-k 5 %, 30 steps each: the loss
+   falls, params stay bitwise replicated, the error-feedback slices differ
+   across workers, one K3 and one K4 per step; (d) a supervised 3 x 100
+   step run with a crash after chunk 1 equals three uninterrupted chunks
+   exactly (params and moments, 0.0), ``nan_params`` on subdomain 0
+   trips the guard on every rank by consensus (``ok_sub[0]`` False,
+   ``ok_sub[3]`` True, 1 good step), and the run's checkpoint resumes in
+   ``ReferenceTrainer`` bitwise; (e) ``python -m repro_torch.launch.train
+   pinn --distributed --nx 2 --nt 2 --steps 20`` exits 0.  One
+   ``{"distributed": ...}`` line;
+8. **lm kernels** — hold K5 (flash attention) against its plain version on
    the card: float32 (rtol = atol = 2e-5, the CUDA-core kernel) and bf16
    (both outputs bf16, rtol = atol = 1e-2, the tensor-core kernel: by TMA
    at head dims 64 and 128, by element loads at 100), heads H/Hk 32/8,
@@ -80,13 +105,13 @@ any of them ends the run with a non-zero exit code and no result line:
    reference's bound): P 16, 64, 128, T in {1, 5, 17, 31, 33, 256, 1000}
    (B = 2) and T = 99 at B = 3, w from U(0.2, 0.98), a strong decay
    w = 0.05 and a near-1 decay w ~ exp(-e^-6) (the init's decay_bias);
-8. **lm timing** — K5 at llama3.2-1b's per-layer prefill shape (B = 1,
+9. **lm timing** — K5 at llama3.2-1b's per-layer prefill shape (B = 1,
    H = 32, Hk = 8, dh = 64, bf16, causal) at S = T = 4096 and 32768, beside
    its plain version and PyTorch's ``scaled_dot_product_attention`` on the
    same tensors (timed only; the port never calls it); K6 at rwkv6-3b's
    per-layer shape (B = 1, T = 4096, H = 40, P = 64, float32) beside its
    plain version;
-9. **llm** — llama3.2-1b and rwkv6-3b at their published width and depth,
+10. **llm** — llama3.2-1b and rwkv6-3b at their published width and depth,
    weights drawn from a seed on the card: prefill (B = 2, S = 1024 /
    B = 1, T = 1024) through the kernels with the launch counts set to 0 just
    before and read just after (exactly n_layers K5 or K6 wrapper calls,
@@ -98,11 +123,11 @@ any of them ends the run with a non-zero exit code and no result line:
    llama through the float32 K5 kernel, one launch per layer), and 16 decode
    steps held against the float32 prefill (2e-3 of max |logit|, the
    reference's bound);
-10. **llm serve** — ``repro_torch.launch.serve.main`` serves each of them at
+11. **llm serve** — ``repro_torch.launch.serve.main`` serves each of them at
    full size (``--no-reduced --batch 4 --prompt-len 16 --gen 16``), twice
    (the first run pays the card's first-use costs): a (4, 32) token array,
    its tokens/s printed;
-11. **report** — one ``{"kernels": [...]}`` line (K1-K6), the card's name
+12. **report** — one ``{"kernels": [...]}`` line (K1-K6), the card's name
    and power limit from ``nvidia-smi``, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Each phase prints its seconds.
@@ -160,6 +185,8 @@ DEVICE_KERNELS = {"flash_attention_sm90": "flash_fwd_sm90_kernel",
 # device kernels of a training step (the profiler split of the train phase)
 TRAIN_KERNELS = {"k3": "pinn_mlp_fwd_kernel", "k4": "pinn_mlp_bwd_kernel",
                  "k4_reduce": "pinn_mlp_bwd_reduce"}
+# the trainers' record_function scopes (the reference's named scopes)
+SCOPES = ("dd-comp-forward", "dd-comm-halo", "dd-comp-update")
 REPLACES = {"pinn_mlp_fwd1": "src/repro/kernels/pinn_mlp.py:82",
             "pinn_mlp_fwd2": "src/repro/kernels/pinn_mlp.py:148",
             "pinn_mlp_fwd2_res": "src/repro/kernels/pinn_mlp.py:166",
@@ -1194,6 +1221,398 @@ def runtime_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- distributed
+
+DIST_RANKS = 4
+DIST_STEPS, DIST_CHUNK = 1500, 250
+DIST_TURN_STEPS = 100
+# the distributed trainer against ReferenceTrainer after 10 steps: the
+# reference's bounds (tests/test_parallel_equivalence.py)
+DIST_PARAM_TOL = 1e-5
+DIST_LOSS_RTOL = 1e-4
+
+
+def _dist_setup(dev, rank_trainer=True, **dd):
+    """The quickstart's problem (2 x 2 Burgers XPINN, 24 x 4 nets, n_iface
+    20, n_res 1000, n_bnd 80, lrs 2e-3, fused path) with a
+    DistributedDDTrainer (inside a process group) or a ReferenceTrainer;
+    the global batch on ``dev``."""
+    from repro_torch.core import (Burgers1D, CartesianDecomposition,
+                                  DDConfig, DistributedDDTrainer,
+                                  ReferenceTrainer, XPINN, build_topology)
+    from repro_torch.core.nets import MLPConfig, SubdomainModelConfig
+    from repro_torch.data import make_batch
+
+    pde = Burgers1D()
+    dec = CartesianDecomposition(((-1, 1), (0, 1)), 2, 2)
+    topo = build_topology(dec, n_iface=20)
+    cfg = SubdomainModelConfig(nets={"u": MLPConfig(2, 1, 24, 4)})
+    batch = make_batch(dec, topo, pde, n_res=1000, n_bnd=80,
+                       rng=np.random.default_rng(SEED))
+    cls = DistributedDDTrainer if rank_trainer else ReferenceTrainer
+    tr = cls(pde, cfg, topo, DDConfig(method=XPINN, residual_path="fused",
+                                      **dd), lrs=2e-3, device=dev)
+    return tr, batch.device_arrays(dev), dec
+
+
+def _sync(dev) -> None:
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _leaves_np(tree) -> list:
+    from repro_torch.core.nets import tree_leaves
+    return [t.detach().cpu().numpy() for t in tree_leaves(tree)]
+
+
+def _dist_rank(mesh, ck_dir: str) -> dict:
+    """One rank of the distributed phase, (a)-(d); every step with the
+    PINN kernels' counts set to 0 just before and read just after."""
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import DataParallelTrainer, evaluate_l2
+    from repro_torch.core.domain import build_topology
+    from repro_torch.core.nets import tree_leaves
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import pinn_mlp as K
+    from repro_torch.optim import CompressionConfig
+    from repro_torch.runtime import (Fault, FaultInjector, Supervisor,
+                                     SupervisorConfig, inject_nan)
+    from repro_torch.core import TrainState
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    dev = mesh.rank_device(rank)
+    out = {"rank": rank, "device": str(dev)}
+
+    def counted(fn):
+        K.reset_launch_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(dev)
+        return (res, time.perf_counter() - t0, dict(K.launches),
+                dict(K.plain_calls))
+
+    tr, b_glob, dec = _dist_setup(dev)
+    b = tr.shard_batch(b_glob)
+
+    # (a) 10 steps from one init, gathered for the parent's comparison
+    (s, terms), secs, cnt, plain = counted(
+        lambda: tr.run_chunk(tr.init(SEED), b, 10))
+    g = tr.gather_state(s)
+    out["a"] = {"params": _leaves_np(g.params) if rank == 0 else None,
+                "loss": float(terms["loss"][-1].sum()), "seconds": secs,
+                "launches": cnt, "plain": plain}
+
+    # (b) 1500 steps in chunks of 250, then rel-L2 through K1 on rank 0
+    def train():
+        st = tr.init(SEED)
+        for _ in range(DIST_STEPS // DIST_CHUNK):
+            st, _ = tr.run_chunk(st, b, DIST_CHUNK)
+        return st
+
+    s_b, secs, cnt, plain = counted(train)
+    params = tr.gather_state(s_b).params
+    l2, _, l2_cnt, l2_plain = counted(
+        lambda: evaluate_l2(dec, tr.model_cfg, params, tr.act_codes, tr.pde,
+                            device=dev) if rank == 0 else None)
+    out["b"] = {"seconds": secs, "launches": cnt, "plain": plain,
+                "rel_l2": l2, "l2_launches": l2_cnt, "l2_plain": l2_plain}
+
+    # exchange on / off in turns (on, off, off, on) from s_b: the
+    # compute / communication split per step
+    tr_off, _, _ = _dist_setup(dev, disable_exchange=True)
+    run = {"on": tr, "off": tr_off}
+    turns = {"on": [], "off": []}
+    staged = []
+    for kind in ("on", "off", "off", "on"):
+        dist.barrier()
+        _sync(dev)
+        b0 = tr.comm.staged_bytes
+        t0 = time.perf_counter()
+        run[kind].run_chunk(s_b, b, DIST_TURN_STEPS)
+        _sync(dev)
+        turns[kind].append((time.perf_counter() - t0) * 1e3
+                           / DIST_TURN_STEPS)
+        if kind == "on":
+            staged.append((tr.comm.staged_bytes - b0) / DIST_TURN_STEPS)
+    out["turns_ms"] = turns
+    out["staged_bytes_per_step"] = staged
+    # named scopes of 20 steps under the profiler (rank 0; the others run
+    # the same chunk unprofiled, in lockstep)
+    dist.barrier()
+    if rank == 0:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tr.run_chunk(s_b, b, 20)
+            _sync(dev)
+        # a scope is a host range and, with CUDA activity on, a device
+        # annotation of the same name: keep both
+        host, card = dict.fromkeys(SCOPES, 0.0), dict.fromkeys(SCOPES, 0.0)
+        for e in prof.key_averages():
+            if e.key not in SCOPES:
+                continue
+            if e.device_type == DeviceType.CPU:
+                host[e.key] += e.cpu_time_total / 1e3 / 20
+            else:
+                card[e.key] += e.device_time_total / 1e3 / 20
+        out["scopes_ms_per_step"] = {"host": host, "device_span": card}
+    else:
+        tr.run_chunk(s_b, b, 20)
+
+    # (c) data parallel, 4 workers, none / int8 / top-k, 30 steps each
+    from repro_torch.core import Burgers1D, CartesianDecomposition
+    from repro_torch.core.nets import MLPConfig, SubdomainModelConfig
+
+    pde = Burgers1D()
+    dec4 = CartesianDecomposition(((-1, 1), (0, 1)), 4, 1)
+    bdp = make_batch(dec4, build_topology(dec4, 4), pde, n_res=64, n_bnd=16,
+                     rng=np.random.default_rng(0)).device_arrays(dev)
+    cfg = SubdomainModelConfig(nets={"u": MLPConfig(2, 1, 20, 3)})
+    out["c"] = []
+    for comp in (None, CompressionConfig("int8"),
+                 CompressionConfig("topk", topk_frac=0.05)):
+        dp = DataParallelTrainer(pde, cfg, n_workers=mesh.n_sub,
+                                 compression=comp, lr=5e-4,
+                                 residual_path="fused", device=dev)
+
+        def thirty():
+            st, losses = dp.init(SEED), []
+            for _ in range(30):
+                st, t = dp.step(st, bdp)
+                losses.append(float(t["loss"]))
+            return st, losses
+
+        (st, losses), secs, cnt, plain = counted(thirty)
+        full = dp.gather_state(st)
+        row = {"scheme": None if comp is None else comp.scheme,
+               "loss_first": losses[0], "loss_last": losses[-1],
+               "seconds": secs, "launches": cnt, "plain": plain}
+        # params stay replicated bitwise: every worker applies one gradient
+        p = torch.cat([t.reshape(-1) for t in tree_leaves(st["params"])])
+        allp = dp.comm.all_gather(p)
+        row["param_spread"] = float((allp - allp[0]).abs().max())
+        if comp is not None:
+            e0 = tree_leaves(full["err"])[0]
+            row["err_spread"] = float(max((e0[i] - e0[0]).abs().max()
+                                          for i in range(1, mesh.n_sub)))
+        out["c"].append(row)
+
+    # (d) supervised crash replay (3 x 100 steps, crash after chunk 1)
+    # against three uninterrupted chunks; the consensus guard
+    def crash_replay():
+        sup = Supervisor(tr, ck_dir, SupervisorConfig(chunk_steps=100),
+                         FaultInjector([Fault(chunk=1, kind="crash")]),
+                         decomp=dec)
+        s_f, report = sup.run(tr.init(SEED), b, 300)
+        s_u = tr.init(SEED)
+        for _ in range(3):
+            s_u, _ = tr.run_chunk(s_u, b, 100)
+        diff = max(float(np.abs(x - y).max()) for x, y in zip(
+            _leaves_np((s_f.params, s_f.opt["m"], s_f.opt["v"])),
+            _leaves_np((s_u.params, s_u.opt["m"], s_u.opt["v"]))))
+        same = (int(s_f.step) == int(s_u.step) == 300 and
+                s_f.opt["count"].tolist() == s_u.opt["count"].tolist())
+        st = tr.init(SEED)
+        if tr.fault_target(0):
+            tree = inject_nan({"params": st.params, "opt": st.opt,
+                               "step": st.step}, "nan_params", 0)
+            st = TrainState(params=tree["params"], opt=tree["opt"],
+                            step=tree["step"])
+        _, _, health = tr.run_chunk_guarded(st, b, 4)
+        return (report, diff, same, tr.gather_state(s_f),
+                health["ok_sub"].tolist(), int(health["good_steps"]))
+
+    (report, diff, same, g_f, ok_sub, good), secs, cnt, plain = counted(
+        crash_replay)
+    out["d"] = {"report": {k: v for k, v in report.as_dict().items()
+                           if isinstance(v, int)},
+                "recovery_s": report.recovery_s, "max_abs_diff": diff,
+                "same_step_and_count": same, "ok_sub": ok_sub,
+                "good_steps": good, "seconds": secs, "launches": cnt,
+                "plain": plain,
+                "params": _leaves_np(g_f.params) if rank == 0 else None}
+
+    # does gloo's all-reduce take a tensor on the card as it is?
+    try:
+        t = torch.ones(1, device=dev)
+        dist.all_reduce(t)
+        out["gloo_all_reduce_cuda"] = float(t) == mesh.n_sub
+    except (RuntimeError, ValueError) as e:
+        out["gloo_all_reduce_cuda"] = f"{type(e).__name__}: {e}"[:200]
+    return out
+
+
+def distributed_phase(dev) -> dict:
+    """Algorithm 1 with one rank per subdomain on the card: 4 ``gloo`` ranks
+    (``repro_torch.launch.mesh``) sharing it, (a) parity with
+    ReferenceTrainer after 10 steps, (b) 1500 steps to rel-L2 < 0.5 with
+    the compute / communication split, (c) the data-parallel baseline
+    with and without compression, (d) supervised crash replay, the
+    consensus guard and the checkpoint resumed in ReferenceTrainer, (e)
+    ``launch.train pinn --distributed``."""
+    from repro_torch.core.nets import tree_leaves
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime import elastic_resume
+
+    t_phase = time.perf_counter()
+    k3, k4, k1 = "pinn_mlp_fwd2_res", "pinn_mlp_bwd2", "pinn_mlp_fwd1"
+    res = {"card": _smi(), "ranks": DIST_RANKS}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        mesh = mesh_lib.make_pinn_mesh(DIST_RANKS, tmp, dev.type,
+                                       timeout_s=300)
+        ck = os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        ranks = mesh_lib.run_ranks(mesh, _dist_rank, ck, deadline_s=600)
+        res["group_seconds"] = time.perf_counter() - t0
+        res["backend"] = mesh.backend
+        res["devices"] = [r["device"] for r in ranks]
+        res["gloo_all_reduce_cuda"] = ranks[0]["gloo_all_reduce_cuda"]
+        launches = {}
+
+        def add(cnt):
+            for k, v in cnt.items():
+                launches[k] = launches.get(k, 0) + v
+
+        # (a) parity with ReferenceTrainer on the card
+        ref, b, dec = _dist_setup(dev, rank_trainer=False)
+        s_ref, t_ref = ref.run_chunk(ref.init(SEED), b, 10)
+        par = max(float(np.abs(x - y.detach().cpu().numpy()).max())
+                  for x, y in zip(ranks[0]["a"]["params"],
+                                  tree_leaves(s_ref.params)))
+        l_ref = float(t_ref["loss"][-1].sum())
+        l_d = ranks[0]["a"]["loss"]
+        check(par <= DIST_PARAM_TOL, f"(a) params differ by {par:.3e}")
+        check(abs(l_d - l_ref) <= DIST_LOSS_RTOL * max(1.0, abs(l_ref)),
+              f"(a) loss {l_d} against {l_ref}")
+        for r in ranks:
+            check(r["a"]["launches"][k3] == r["a"]["launches"][k4] == 10,
+                  f"(a) rank {r['rank']} launches {r['a']['launches']}")
+            check(not any(r["a"]["plain"].values()),
+                  f"(a) plain calls on CUDA {r['a']['plain']}")
+            add(r["a"]["launches"])
+        res["a"] = {"param_max_abs_diff": par, "loss": l_d,
+                    "loss_reference": l_ref, "tol": DIST_PARAM_TOL}
+
+        # (b) training: exactly one K3 and one K4 per step on every rank
+        for r in ranks:
+            cnt = r["b"]["launches"]
+            check(cnt[k3] == cnt[k4] == DIST_STEPS,
+                  f"(b) rank {r['rank']}: {cnt[k3]} K3 / {cnt[k4]} K4 for "
+                  f"{DIST_STEPS} steps")
+            check(not any(r["b"]["plain"].values())
+                  and not any(r["b"]["l2_plain"].values()),
+                  f"(b) plain calls on CUDA on rank {r['rank']}")
+            add(cnt)
+            add(r["b"]["l2_launches"])
+        r0 = ranks[0]
+        check(r0["b"]["rel_l2"] < 0.5, f"(b) rel-L2 {r0['b']['rel_l2']:.4f}")
+        check(r0["b"]["l2_launches"][k1] > 0, "(b) rel-L2 never ran K1")
+        on = sorted(max(r["turns_ms"]["on"][i] for r in ranks)
+                    for i in range(2))
+        off = sorted(max(r["turns_ms"]["off"][i] for r in ranks)
+                     for i in range(2))
+        on_ms, off_ms = sum(on) / 2, sum(off) / 2
+        # the single-process trainer, same problem, same card, same run
+        st, _ = ref.run_chunk(ref.init(SEED), b, 20)
+        ref_ms = []
+        for _ in range(2):
+            _sync(dev)
+            t0 = time.perf_counter()
+            ref.run_chunk(st, b, DIST_TURN_STEPS)
+            _sync(dev)
+            ref_ms.append((time.perf_counter() - t0) * 1e3 / DIST_TURN_STEPS)
+        res["b"] = {
+            "steps": DIST_STEPS, "chunk": DIST_CHUNK,
+            "rel_l2": r0["b"]["rel_l2"],
+            "seconds": [r["b"]["seconds"] for r in ranks],
+            "ms_per_step_1500": [r["b"]["seconds"] * 1e3 / DIST_STEPS
+                                 for r in ranks],
+            "turns_ms_per_step": {"on": [r["turns_ms"]["on"] for r in ranks],
+                                  "off": [r["turns_ms"]["off"]
+                                          for r in ranks]},
+            "ms_per_step": on_ms, "compute_ms_per_step": off_ms,
+            "comm_ms_per_step": on_ms - off_ms,
+            "comm_share": (on_ms - off_ms) / on_ms,
+            "staged_bytes_per_step": [r["staged_bytes_per_step"]
+                                      for r in ranks],
+            "scopes_ms_per_step_rank0": r0["scopes_ms_per_step"],
+            "reference_trainer_ms_per_step": ref_ms}
+
+        # (c) data parallel
+        for i, row in enumerate(r0["c"]):
+            for r in ranks:
+                cnt = r["c"][i]["launches"]
+                check(cnt[k3] == cnt[k4] == 30,
+                      f"(c) {row['scheme']}: rank {r['rank']} launches {cnt}")
+                check(not any(r["c"][i]["plain"].values()),
+                      f"(c) plain calls on CUDA {r['c'][i]['plain']}")
+                add(cnt)
+            check(row["loss_last"] < row["loss_first"],
+                  f"(c) {row['scheme']}: loss {row['loss_first']} -> "
+                  f"{row['loss_last']}")
+            check(row["param_spread"] == 0.0,
+                  f"(c) {row['scheme']}: params differ across workers")
+            if row["scheme"] is not None:
+                check(row["err_spread"] > 0.0, f"(c) {row['scheme']}: the "
+                      "error feedback is the same on every worker")
+        res["c"] = [{k: v for k, v in row.items()
+                     if k not in ("launches", "plain")} for row in r0["c"]]
+
+        # (d) supervisor: crash replay exact, the guard by consensus, the
+        # distributed checkpoint resumed in ReferenceTrainer
+        for r in ranks:
+            d = r["d"]
+            check(d["max_abs_diff"] == 0.0 and d["same_step_and_count"],
+                  f"(d) rank {r['rank']}: replay differs by "
+                  f"{d['max_abs_diff']:.3e}")
+            check(d["report"]["crashes"] == 1 and d["report"]["chunks"] == 3,
+                  f"(d) rank {r['rank']}: {d['report']}")
+            check(d["ok_sub"][0] is False and d["ok_sub"][3] is True
+                  and d["good_steps"] == 1,
+                  f"(d) guard: ok_sub {d['ok_sub']} good {d['good_steps']}")
+            # 4 supervised attempts + 3 uninterrupted chunks of 100, and 4
+            # guarded steps
+            check(d["launches"][k3] == d["launches"][k4] == 704,
+                  f"(d) rank {r['rank']} launches {d['launches']}")
+            check(not any(d["plain"].values()), "(d) plain calls on CUDA")
+            add(d["launches"])
+        resumed, meta = elastic_resume(ck, ref, dec)
+        rdiff = max(float(np.abs(x - y.detach().cpu().numpy()).max())
+                    for x, y in zip(r0["d"]["params"],
+                                    tree_leaves(resumed.params)))
+        check(rdiff == 0.0 and int(resumed.step) == 300
+              and int(resumed.opt["count"]) == 300,
+              f"(d) ReferenceTrainer resume differs by {rdiff:.3e}")
+        res["d"] = {k: r0["d"][k] for k in ("report", "recovery_s",
+                                            "max_abs_diff", "ok_sub",
+                                            "good_steps", "seconds")}
+        res["d"]["reference_resume_max_abs_diff"] = rdiff
+
+        # (e) the CLI, as a user runs it
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=SRC)
+        p = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "pinn",
+             "--distributed", "--nx", "2", "--nt", "2", "--steps", "20",
+             "--device", dev.type],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        check(p.returncode == 0, f"(e) train pinn --distributed exited "
+              f"{p.returncode}: {p.stderr[-2000:]}")
+        last = json.loads(p.stdout.strip().splitlines()[-1])["train"]
+        res["e"] = {"seconds": time.perf_counter() - t0, "result": last,
+                    "head": p.stdout.strip().splitlines()[:6]}
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    emit({"distributed": res})
+    return launches
+
+
 # ---------------------------------------------------------------- LLM kernels
 
 def _allclose(got, want, tol) -> float:
@@ -1423,6 +1842,10 @@ def _device_split(fn, kernels=None) -> dict:
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
             continue
+        # a record_function scope is also a device-side annotation whose
+        # span covers the kernels inside it: it is not work of its own
+        if getattr(ev, "is_user_annotation", False) or ev.key in SCOPES:
+            continue
         ms = ev.self_device_time_total / 1e3
         busy += ms
         for name, sym in kernels.items():
@@ -1570,6 +1993,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every phase's numbers to this JSON")
+    ap.add_argument("--only", default=None, choices=("distributed",),
+                    help="only the build and this phase (no result line)")
     ap.add_argument("--ab", default=None, metavar="DIR",
                     help="only time this checkout's K3/K4 against the "
                          "pinn_mlp_fwd.cu / pinn_mlp_bwd.cu in DIR (another "
@@ -1603,6 +2028,11 @@ def main(argv=None) -> int:
         phase("ab", ab_phase, dev, args.ab, _rows(b_main))
         print(_smi())
         return 0
+    if args.only:
+        phase("build", build_phase)
+        phase(args.only, distributed_phase, dev)
+        print(_smi())
+        return 0
     phase("build", build_phase)
     worst = phase("kernels", sweep, dev)
     worst.update(phase("train kernels", train_sweep, dev))
@@ -1621,6 +2051,8 @@ def main(argv=None) -> int:
         "backward_kernel_ms": t4["ms"],
         "other_ms": train["step_ms"] - t3["ms"] - t4["ms"]}})
     phase("runtime", runtime_phase, dev)
+    for k, v in phase("distributed", distributed_phase, dev).items():
+        launches[k] = launches.get(k, 0) + v
     worst.update(phase("lm kernels", lm_sweep, dev))
     times.update(phase("lm timing", lm_timing, dev))
     launches.update(phase("llm", llm_phase, dev))

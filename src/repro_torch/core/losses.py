@@ -222,3 +222,38 @@ def subdomain_loss(pde: PDE, cfg, method: int, weights: LossWeights, params,
                                        width_masks, batch, path)
     return assemble_subdomain_loss(pde, method, weights, batch, res, own,
                                    data_pred, recv_u, recv_g)
+
+
+def vanilla_pinn_loss(pde: PDE, cfg, weights: LossWeights, params, act_code,
+                      width_masks, batch: SubBatch,
+                      path: ResidualPath | None = None):
+    """Eq. (3): the single-domain PINN loss of ONE unstacked model
+    (``nets.init_model``) on one worker's points (the data-parallel
+    baseline, Fig. 1a); ``batch`` carries no subdomain axis.
+
+    The model goes through the stacked entries with a subdomain axis of 1
+    added and taken off again.  Fused path: residual and data points form
+    one ``[res | data]`` megabatch, one K3 launch forward and one K4
+    backward per field net.  Returns (total, {loss, mse_data, mse_res})."""
+    one = lambda t: t[None]
+    p1 = nets.map_tree(one, params)
+    wm = None if width_masks is None else {k: one(v)
+                                           for k, v in width_masks.items()}
+    res_pts, data_pts = one(batch.res_pts), one(batch.data_pts)
+    if path is not None:
+        res_b, data_b = fused.model_bundle_segments(
+            cfg, p1, (res_pts, data_pts), path.act, wm, d2_dirs=pde.d2_dirs,
+            bwd=path.bwd)
+        res = pde.residual_from_derivs(res_pts, *res_b)[0]
+        pred = data_b[0][0]
+    else:
+        code = torch.as_tensor([int(act_code)], device=res_pts.device)
+        pred = _pointwise(_field, cfg, p1, code, wm, data_pts)[0]
+        res = _pointwise(pde.residual, cfg, p1, code, wm, res_pts)[0]
+    w = batch.data_comp * batch.data_mask[:, None]
+    mse_data = (torch.sum(w * (pred - batch.data_vals) ** 2)
+                / torch.clamp(torch.sum(w), min=1.0))
+    mse_res = (torch.sum(batch.res_mask[:, None] * res ** 2)
+               / torch.clamp(torch.sum(batch.res_mask) * pde.n_eq, min=1.0))
+    total = weights.data * mse_data + weights.residual * mse_res
+    return total, {"loss": total, "mse_data": mse_data, "mse_res": mse_res}

@@ -1,2 +1,3 @@
 """Training-point pipeline (collocation, boundary, interface points)."""
-from repro_torch.data.points import StackedBatch, make_batch, stack_batches
+from repro_torch.data.points import (StackedBatch, make_batch,
+                                     make_vanilla_batch, stack_batches)

@@ -132,3 +132,33 @@ def stack_batches(batches: Sequence[SubBatch]) -> SubBatch:
     return SubBatch(**{f.name: torch.stack([getattr(b, f.name)
                                             for b in batches])
                        for f in fields(SubBatch)})
+
+
+def make_vanilla_batch(decomp: Decomposition, pde: PDE, n_res: int,
+                       n_bnd: int, rng: np.random.Generator,
+                       device=None) -> SubBatch:
+    """Single-domain PINN batch (the eq. (3) baseline): every subdomain's
+    points pooled, no interfaces.  Float32 tensors on ``device`` (None: the
+    CPU), with no subdomain axis."""
+    sb = make_batch(decomp, _dummy_topo(decomp), pde, n_res, n_bnd, rng)
+    flat = lambda a: a.reshape((-1,) + a.shape[2:])
+    arrays = {f.name: flat(getattr(sb, f.name)) for f in fields(sb)
+              if not f.name.startswith(("iface", "edge"))}
+    arrays.update(iface_pts=np.zeros((1, 1, decomp.dim)),
+                  iface_nrm=np.zeros((1, 1, decomp.dim)),
+                  edge_mask=np.zeros((1,)))
+    return SubBatch(**{k: torch.as_tensor(v, dtype=torch.float32,
+                                          device=device)
+                       for k, v in arrays.items()})
+
+
+def _dummy_topo(decomp: Decomposition) -> Topology:
+    """A topology with no edges: one empty slot per subdomain."""
+    n = decomp.n_sub
+    return Topology(
+        n_sub=n, n_slots=1, n_iface=1, dim=decomp.dim,
+        neighbor=np.full((n, 1), -1, np.int32),
+        edge_mask=np.zeros((n, 1), np.float32),
+        iface_points=np.zeros((n, 1, 1, decomp.dim)),
+        iface_normal=np.ones((n, 1, 1, decomp.dim)),
+        perms=[[]])

@@ -1,0 +1,139 @@
+"""Process groups for the distributed trainers: one rank per subdomain.
+
+Counterpart of the reference package's ``launch/mesh.py::make_pinn_mesh``
+(a 1-D ``("sub",)`` device mesh, Algorithm 1's communicator).  Here the
+communicator is a ``torch.distributed`` process group of ``n`` ranks, each
+its own process, started on this host by :func:`run_ranks`:
+
+* the ranks start with ``torch.multiprocessing``'s ``spawn`` method (no
+  forked copy of a parent's CUDA state);
+* the group is ``gloo``, initialised through a ``FileStore`` in a directory
+  the caller gives (no fixed TCP port, so groups started side by side never
+  collide), with an explicit ``timeout``: a dead or stuck rank fails its
+  peers' collectives instead of hanging them;
+* every rank runs on ``cuda:0`` (the one-card machine: the ranks share it)
+  or on the CPU when asked, with one intra-op thread;
+* a rank that raises fails the run: :func:`run_ranks` stops the others and
+  raises the rank's error.  Nothing is caught and continued.
+
+``gloo`` moves host tensors only; payloads on the card are staged through
+pinned host buffers by :class:`repro_torch.core.halo.Comm`.  NCCL, with one
+card per rank, is not used here: it refuses two ranks on one card.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import time
+import traceback
+import uuid
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.device import resolve_device
+
+BACKEND = "gloo"
+TIMEOUT_S = 300.0
+
+
+@dataclass(frozen=True)
+class PinnMesh:
+    """``n_sub`` ranks on one host: their store directory, device type and
+    collective timeout."""
+
+    n_sub: int
+    store_dir: str
+    device: str = "cuda"
+    timeout_s: float = TIMEOUT_S
+
+    @property
+    def backend(self) -> str:
+        return BACKEND
+
+    def rank_device(self, rank: int) -> torch.device:
+        """Every rank's device: ``cuda:0`` (shared) or the CPU."""
+        return torch.device("cuda", 0) if self.device == "cuda" \
+            else torch.device("cpu")
+
+
+def make_pinn_mesh(n_sub: int, store_dir: str, device=None,
+                   timeout_s: float = TIMEOUT_S) -> PinnMesh:
+    """The process group's plan for ``n_sub`` ranks; ``device`` None means
+    the card (raises when there is none: no quiet CPU run)."""
+    dev = resolve_device(device)
+    if n_sub < 1:
+        raise ValueError(f"n_sub must be >= 1, got {n_sub}")
+    os.makedirs(store_dir, exist_ok=True)
+    return PinnMesh(n_sub=n_sub, store_dir=os.path.abspath(store_dir),
+                    device=dev.type, timeout_s=float(timeout_s))
+
+
+def _rank_main(rank: int, mesh: PinnMesh, store: str, out_dir: str, fn,
+               args) -> None:
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    # every rank lives on this host: gloo's pairs go over the loopback
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group(
+        BACKEND, store=dist.FileStore(store, mesh.n_sub), rank=rank,
+        world_size=mesh.n_sub,
+        timeout=datetime.timedelta(seconds=mesh.timeout_s))
+    try:
+        if mesh.device == "cuda":
+            torch.cuda.set_device(mesh.rank_device(rank))
+        result = fn(mesh, *args)
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+    except BaseException:
+        # kept for the parent: the first rank to fail is the cause, the
+        # others usually fail in a collective after it
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(mesh: PinnMesh, fn, *args, deadline_s: float | None = None
+              ) -> list:
+    """Run ``fn(mesh, *args)`` on every rank of ``mesh``, each in its own
+    process inside the initialised group; returns the ranks' return values
+    in rank order (they cross by ``torch.save``: keep them on the CPU).
+
+    ``fn`` must be importable by name (a module-level function).  When a
+    rank fails, the others are stopped and ``RuntimeError`` carries every
+    failed rank's traceback; with ``deadline_s`` a run that outlasts it
+    raises ``TimeoutError`` after stopping every rank.
+    On a card, build the kernels in the caller first
+    (``repro_torch.kernels.native.build()``): ranks that find no library
+    would each run ``nvcc``."""
+    import torch.multiprocessing as mp
+
+    tag = uuid.uuid4().hex[:12]
+    store = os.path.join(mesh.store_dir, f"store-{tag}")
+    out_dir = os.path.join(mesh.store_dir, f"ranks-{tag}")
+    os.makedirs(out_dir)
+    ctx = mp.start_processes(_rank_main,
+                             args=(mesh, store, out_dir, fn, args),
+                             nprocs=mesh.n_sub, join=False,
+                             start_method="spawn")
+    t_end = None if deadline_s is None else time.monotonic() + deadline_s
+    try:
+        while not ctx.join(timeout=0.5):
+            if t_end is not None and time.monotonic() > t_end:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.terminate()
+                for p in ctx.processes:
+                    p.join()
+                raise TimeoutError(f"{mesh.n_sub} ranks outlasted "
+                                   f"{deadline_s} s; stopped")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        errs = [open(os.path.join(out_dir, f)).read()
+                for f in sorted(os.listdir(out_dir)) if f.endswith(".err")]
+        raise RuntimeError(f"{len(errs)} of {mesh.n_sub} ranks failed:\n"
+                           + "\n".join(errs)) from e
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(mesh.n_sub)]

@@ -49,6 +49,21 @@ Design decisions:
 
 Restored leaves go to ``trainer.device`` with the dtypes they were saved
 with (float32 params and moments, int32 step and Adam count).
+
+**One rank per subdomain** (``DistributedDDTrainer``, and
+``DataParallelTrainer`` on several workers): every rank runs its own
+Supervisor in lockstep.  Every decision is already collective — the health
+verdict is agreed inside the guarded chunk and the fault schedule is the
+same on every rank — so all ranks commit or roll back together.  A
+checkpoint is the GLOBAL state (``trainer.gather_state``), written by rank
+0 in the reference's layout, after which every rank waits at a barrier; a
+rollback or resume reads that global checkpoint (rank 0 first, which
+quarantines whatever is corrupt, then the others) and takes the rank's
+slice (``trainer.shard_state``).  So a distributed run's checkpoint
+resumes in ``ReferenceTrainer`` and the other way round.  A NaN fault on
+subdomain q poisons only the rank that holds q
+(``trainer.fault_target``).  Storage faults of a ``ChaosInjector`` act on
+the shared disk: give them to rank 0's injector only.
 """
 from __future__ import annotations
 
@@ -60,7 +75,7 @@ import torch
 
 from repro_torch.checkpoint import ckpt, integrity
 from repro_torch.core.nets import map_tree
-from repro_torch.core.trainer import TrainState
+from repro_torch.core.trainer import TrainState, _fit_count
 from repro_torch.obs import MetricsRegistry, Obs
 from repro_torch.optim import adam as adam_lib
 from repro_torch.runtime import elastic
@@ -120,9 +135,53 @@ def _from_tree(tree: dict, like):
 
 
 def _to_device(tree, device):
-    """Restored numpy leaves -> tensors on ``device``, dtypes as saved."""
-    return map_tree(lambda a: torch.as_tensor(np.asarray(a), device=device),
-                    tree)
+    """Restored numpy leaves -> tensors on ``device``, dtypes as saved
+    (an empty subtree, e.g. no error-feedback buffer, stays None)."""
+    return map_tree(lambda a: None if a is None else
+                    torch.as_tensor(np.asarray(a), device=device), tree)
+
+
+def _global(trainer, state):
+    """The global state of a trainer whose ranks each hold a slice
+    (collective); a single-process trainer's state as it is."""
+    gather = getattr(trainer, "gather_state", None)
+    return state if gather is None else gather(state)
+
+
+def _local(trainer, state):
+    """This rank's slice of a global state (see :func:`_global`)."""
+    shard = getattr(trainer, "shard_state", None)
+    return state if shard is None else shard(state)
+
+
+def _comm(trainer):
+    """The trainer's process-group handle, or None in one process."""
+    return getattr(trainer, "comm", None)
+
+
+def _rank0_first(trainer, read):
+    """``read()`` on rank 0, then (after a barrier) on the other ranks:
+    rank 0's verified read quarantines a corrupt generation before the
+    others look.  A barrier after keeps any rank from writing the next
+    generation while another still reads."""
+    comm = _comm(trainer)
+    if comm is None:
+        return read()
+    out = read() if comm.rank == 0 else None
+    comm.barrier()
+    if comm.rank != 0:
+        out = read()
+    comm.barrier()
+    return out
+
+
+def _restored(tree: dict, like_tree: dict, device) -> dict:
+    """Restored numpy leaves on ``device``, the Adam count in the
+    template's shape."""
+    tree = _to_device(tree, device)
+    tree["opt"]["count"] = _fit_count(tree["opt"]["count"],
+                                      like_tree["opt"]["count"])
+    return tree
 
 
 def _adam_count(tree: dict):
@@ -207,9 +266,13 @@ class Supervisor:
         }}
 
     def _save(self, state) -> None:
-        tree = _as_tree(state)
-        ckpt.save(self.root, int(_np(tree["step"])), tree,
-                  metadata=self._metadata(tree), keep=self.cfg.keep)
+        tree = _as_tree(_global(self.trainer, state))
+        comm = _comm(self.trainer)
+        if comm is None or comm.rank == 0:
+            ckpt.save(self.root, int(_np(tree["step"])), tree,
+                      metadata=self._metadata(tree), keep=self.cfg.keep)
+        if comm is not None:
+            comm.barrier()
 
     def _rollback(self, like) -> object:
         self._restarts += 1
@@ -223,8 +286,9 @@ class Supervisor:
         # write, lost file) is quarantined and the walk falls back to the
         # newest VERIFIED generation instead of ending the run — corrupt
         # state never reaches the trainer
-        tree, _, info = integrity.verified_restore(
-            self.root, _as_tree(like), on_event=self.obs.emit)
+        tree, _, info = _rank0_first(
+            self.trainer, lambda: integrity.verified_restore(
+                self.root, _as_tree(like), on_event=self.obs.emit))
         for name, reason in info.quarantined:
             self._bump("corruptions")
             self.report.events.append(
@@ -234,7 +298,8 @@ class Supervisor:
                 f"generation fallback depth {info.fallback_depth} "
                 f"-> step {info.step}")
         self.report.fallback_depths.append(info.fallback_depth)
-        return _from_tree(_to_device(tree, self.trainer.device), like)
+        tree = _restored(tree, _as_tree(like), self.trainer.device)
+        return _local(self.trainer, _from_tree(tree, like))
 
     # ---------------------------------------------------------------- backoff
     def _apply_backoff(self, health: dict) -> None:
@@ -318,9 +383,11 @@ class Supervisor:
                             if span is not None:
                                 span.event("train.fault", kind=f.kind,
                                            subdomain=f.subdomain)
-                            state = _from_tree(
-                                inject_nan(_as_tree(state), f.kind,
-                                           f.subdomain), state)
+                            owns = getattr(tr, "fault_target", None)
+                            if owns is None or owns(f.subdomain):
+                                state = _from_tree(
+                                    inject_nan(_as_tree(state), f.kind,
+                                               f.subdomain), state)
                     state, terms, health = tr.run_chunk_guarded(
                         state, batch, n, self._lr_scale_arg())
                     for f in faults:
@@ -402,15 +469,26 @@ def elastic_resume(root: str, trainer, decomp, state=None):
     the global step preserved via metadata (so bias correction and lr
     schedules continue instead of restarting cold).
 
+    A trainer whose ranks each hold a slice (``DistributedDDTrainer``)
+    resumes the global checkpoint on every rank and keeps its slice.
+
     Returns ``(state, metadata)``.  ``state`` template defaults to
     ``trainer.init(0)``."""
     like = state if state is not None else trainer.init(0)
+    state, meta = _elastic_global(root, trainer, decomp, like)
+    return _local(trainer, state), meta
+
+
+def _elastic_global(root, trainer, decomp, like):
+    """:func:`elastic_resume`'s global state (before a rank takes its
+    slice)."""
     like_tree = _as_tree(like)
     dev = trainer.device
     # verify first: elastic restarts read whatever generation survived the
     # outage, so the walk quarantines corrupt ones and pins ONE verified step
     # for both reads below
-    _, manifest, info = integrity.verified_raw_leaves(root)
+    _, manifest, info = _rank0_first(
+        trainer, lambda: integrity.verified_raw_leaves(root))
     meta = manifest["metadata"]
     sup = meta.get("supervisor", {})
     sig = sup.get("decomp")
@@ -420,7 +498,7 @@ def elastic_resume(root: str, trainer, decomp, state=None):
     # stacked leaves whatever n_sub the template has
     old_tree, _ = ckpt.restore(root, like_tree, step=info.step)
     if sig is None or int(sig["n_sub"]) == n_new:
-        return _from_tree(_to_device(old_tree, dev), like), meta
+        return _from_tree(_restored(old_tree, like_tree, dev), like), meta
 
     old_spec = elastic.CentroidSpec(sig["centroids"])
     new_params, src = elastic.remap_params(

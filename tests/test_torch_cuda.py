@@ -328,6 +328,64 @@ def test_supervised_crash_recovery_bitwise_on_card(dev, tmp_path):
         assert torch.equal(x, y)
 
 
+def _two_subdomains(cls, device):
+    """A 2 x 1 Burgers XPINN on the fused path (n_iface 8, 16 x 2 nets)."""
+    from repro_torch.core import DDConfig, XPINN, build_topology
+    from repro_torch.data import make_batch
+
+    pde = Burgers1D()
+    dec = CartesianDecomposition(((-1, 1), (0, 1)), 2, 1)
+    topo = build_topology(dec, n_iface=8)
+    cfg = SubdomainModelConfig(nets={"u": MLPConfig(2, 1, 16, 2)})
+    tr = cls(pde, cfg, topo, DDConfig(method=XPINN, residual_path="fused"),
+             lrs=[1e-3, 2e-3], device=device)
+    b = make_batch(dec, topo, pde, n_res=48, n_bnd=16,
+                   rng=np.random.default_rng(0)).device_arrays(device)
+    return tr, b
+
+
+def _two_ranks_rank(mesh):
+    """One of two ranks sharing the card: 5 steps through K3/K4."""
+    import torch.distributed as dist
+    from repro_torch.core import DistributedDDTrainer
+    from repro_torch.core.nets import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tr, b = _two_subdomains(DistributedDDTrainer,
+                            mesh.rank_device(dist.get_rank()))
+    pinn_mlp.reset_launch_counts()
+    s, terms = tr.run_chunk(tr.init(0), tr.shard_batch(b), 5)
+    counts = (dict(pinn_mlp.launches), dict(pinn_mlp.plain_calls))
+    g = tr.gather_state(s)
+    return ([t.cpu().numpy() for t in tree_leaves(g.params)],
+            float(terms["loss"][-1].sum()), counts, tr.comm.staged_bytes)
+
+
+def test_two_ranks_on_card_match_reference_trainer(dev, tmp_path):
+    """Two gloo ranks on one card (payloads staged through pinned host
+    buffers) against the single-process trainer on the card: params within
+    1e-5, the summed loss within 1e-4 relative (the reference's bounds);
+    one K3 and one K4 launch per step on each rank, no plain version."""
+    from repro_torch.core import ReferenceTrainer
+    from repro_torch.core.nets import tree_leaves
+    from repro_torch.kernels import native
+    from repro_torch.launch import mesh as mesh_lib
+
+    native.build()
+    mesh = mesh_lib.make_pinn_mesh(2, str(tmp_path), "cuda", timeout_s=300)
+    ranks = mesh_lib.run_ranks(mesh, _two_ranks_rank, deadline_s=600)
+    tr, b = _two_subdomains(ReferenceTrainer, dev)
+    s, terms = tr.run_chunk(tr.init(0), b, 5)
+    params, loss, (counts, plain), staged = ranks[0]
+    for got, want in zip(params, tree_leaves(s.params)):
+        np.testing.assert_allclose(got, want.cpu().numpy(), rtol=0, atol=1e-5)
+    want = float(terms["loss"][-1].sum())
+    assert abs(loss - want) < 1e-4 * max(1.0, abs(want))
+    for _, _, (c, p), st in ranks:
+        assert c["pinn_mlp_fwd2_res"] == c["pinn_mlp_bwd2"] == 5
+        assert not any(p.values()) and st > 0
+
+
 # ------------------------------------------------------------ LLM kernels
 
 def _qkv(dev, B, S, T, H, Hk, dh, dtype, seed, heads_first=False):

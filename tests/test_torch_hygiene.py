@@ -52,7 +52,8 @@ def test_scan_sees_the_whole_port():
                  "models/causal_lm.py", "kernels/flash_attention.py",
                  "kernels/wkv6.py", "launch/serve.py",
                  "runtime/failures.py", "runtime/chaos.py",
-                 "runtime/elastic.py", "runtime/supervisor.py"):
+                 "runtime/elastic.py", "runtime/supervisor.py",
+                 "optim/compress.py", "launch/mesh.py", "launch/train.py"):
         assert must in names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core") and not _forbidden("jaxtyping_x")
