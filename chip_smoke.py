@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--out results.json]
     python3 chip_smoke.py --ab DIR   # K3/K4 against DIR's sources, in turns
     python3 chip_smoke.py --only distributed   # build + phase 7 only
+    python3 chip_smoke.py --only scenarios     # build + phase 8 only
 
 Run from the root of a checkout.  With ``--ab DIR`` only the build and an
 A/B runs: this checkout's K3 and K4 and the ones built from
@@ -29,7 +30,10 @@ any of them ends the run with a non-zero exit code and no result line:
    the reference's rule) over widths 20/24/80/128 at depths 1/4/3/5, then
    the edges of K4's partition (m = 1, a tile less one, a tile, a tile and
    one, 1120; widths 24/36/100; n_sub 1, 4 and 9, some with blocks owning
-   unequal numbers of tiles), with K4 launched twice and held bitwise
+   unequal numbers of tiles), then the scenarios' shapes (the cavity's
+   d_in = 2, n_out = 3 at 40 x 5 and 80 x 5 with d2 all or none; the
+   us_map's ten subdomains at the rows of its example and paper
+   megabatches), with K4 launched twice and held bitwise
    equal, and ``torch.autograd.grad`` through ``ops.pinn_mlp_forward2`` on
    the card against the CPU;
 3. **timing** — each kernel (CUDA graph of back-to-back launches), its
@@ -93,7 +97,28 @@ any of them ends the run with a non-zero exit code and no result line:
    ``ReferenceTrainer`` bitwise; (e) ``python -m repro_torch.launch.train
    pinn --distributed --nx 2 --nt 2 --steps 20`` exits 0.  One
    ``{"distributed": ...}`` line;
-8. **lm kernels** — hold K5 (flash attention) against its plain version on
+8. **scenarios** — the paper's remaining PINN scenarios, each run with
+   the launch counts set to 0 just before and read just after: (a)
+   ``launch.inverse_heat_map.main --export DIR --serve-demo`` at the
+   example's defaults (Table-3 activations, jvp path, 2000 steps) must
+   reach rel-L2(T,K) <= 0.0147 and a served K field rel-L2 <= 0.0114 with
+   no K1-K4 launch; (b) the same problem at the paper's size (3 x 80 per
+   net, Table 3's unscaled counts), 500 steps, timed; (c) the us_map with
+   one shared tanh on the fused path at 3 x 80: 10 steps on the card
+   against 10 on the CPU from one init (params 1e-5, summed loss 1e-4
+   relative), then 2000 steps with exactly 2 K3 + 2 K4 a step and its
+   rel-L2 through K1; (d) ``launch.navier_stokes_cavity.main`` at its
+   defaults (jvp, 40 x 5, 4000 steps) must reach a Ghia centerline RMS
+   <= 0.117; (e) the cavity at 80 x 5 on the fused path: 10 steps against
+   the jvp path on the card (same bounds), the jvp step eager and both
+   paths in turns (fused, jvp, jvp, fused; chunks of 100), then 4000 steps
+   with exactly one K3 + one K4 a step; (f) vanilla Burgers
+   (``MLPConfig(2, 1, 20, 3)``, 512 + 64 points): 300 Adam steps, then 60
+   L-BFGS iterations, monotone and below 0.9 x the Adam loss, gradients
+   through K3/K4 (two a step) and the 14 probes a step through K2.  No
+   plain version may run on a CUDA tensor.  One ``{"scenarios": ...}``
+   line;
+9. **lm kernels** — hold K5 (flash attention) against its plain version on
    the card: float32 (rtol = atol = 2e-5, the CUDA-core kernel) and bf16
    (both outputs bf16, rtol = atol = 1e-2, the tensor-core kernel: by TMA
    at head dims 64 and 128, by element loads at 100), heads H/Hk 32/8,
@@ -105,13 +130,13 @@ any of them ends the run with a non-zero exit code and no result line:
    reference's bound): P 16, 64, 128, T in {1, 5, 17, 31, 33, 256, 1000}
    (B = 2) and T = 99 at B = 3, w from U(0.2, 0.98), a strong decay
    w = 0.05 and a near-1 decay w ~ exp(-e^-6) (the init's decay_bias);
-9. **lm timing** — K5 at llama3.2-1b's per-layer prefill shape (B = 1,
+10. **lm timing** — K5 at llama3.2-1b's per-layer prefill shape (B = 1,
    H = 32, Hk = 8, dh = 64, bf16, causal) at S = T = 4096 and 32768, beside
    its plain version and PyTorch's ``scaled_dot_product_attention`` on the
    same tensors (timed only; the port never calls it); K6 at rwkv6-3b's
    per-layer shape (B = 1, T = 4096, H = 40, P = 64, float32) beside its
    plain version;
-10. **llm** — llama3.2-1b and rwkv6-3b at their published width and depth,
+11. **llm** — llama3.2-1b and rwkv6-3b at their published width and depth,
    weights drawn from a seed on the card: prefill (B = 2, S = 1024 /
    B = 1, T = 1024) through the kernels with the launch counts set to 0 just
    before and read just after (exactly n_layers K5 or K6 wrapper calls,
@@ -123,11 +148,11 @@ any of them ends the run with a non-zero exit code and no result line:
    llama through the float32 K5 kernel, one launch per layer), and 16 decode
    steps held against the float32 prefill (2e-3 of max |logit|, the
    reference's bound);
-11. **llm serve** — ``repro_torch.launch.serve.main`` serves each of them at
+12. **llm serve** — ``repro_torch.launch.serve.main`` serves each of them at
    full size (``--no-reduced --batch 4 --prompt-len 16 --gen 16``), twice
    (the first run pays the card's first-use costs): a (4, 32) token array,
    its tokens/s printed;
-12. **report** — one ``{"kernels": [...]}`` line (K1-K6), the card's name
+13. **report** — one ``{"kernels": [...]}`` line (K1-K6), the card's name
    and power limit from ``nvidia-smi``, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Each phase prints its seconds.
@@ -732,6 +757,17 @@ def train_sweep(dev) -> dict:
                     unequal += n_tiles % blocks != 0
                     case(act, d_in, n_out, width, depth, d2, n_sub, n)
     check(unequal > 0, "no edge case had blocks owning unequal tiles")
+    # the scenario shapes: the cavity's d_in = 2, n_out = 3 (u, v, p) at
+    # depth 5 with both second-order directions or none (Euler1D's), and
+    # the us_map's ten subdomains at the rows of their ragged megabatch
+    # (the example's counts and the paper's)
+    n_scen = n_cases
+    rows = _scenario_rows()
+    for width in (40, 80):
+        for d2 in (None, ()):
+            case("tanh", 2, 3, width, 5, d2, 4, rows["cavity"])
+    for n in (rows["us_map"], rows["us_map_paper"]):
+        case("tanh", 2, 1, 80, 3, None, 10, n)
     # autograd through the packed call: card (K3 + K4) against the CPU
     args = [t.cpu() for t in _net(gen, 4, 1120, 2, 24, 4, 1, dev)]
     x, w, b, av = args
@@ -751,11 +787,24 @@ def train_sweep(dev) -> dict:
     ag = max(_leaf_err(g.cpu(), c) for g, c in zip(grads[str(dev)],
                                                    grads["cpu"]))
     check(ag <= TOL, f"autograd boundary card vs CPU: {ag:.3e}")
-    emit({"train_sweep_cases": n_cases, "edge_cases": n_cases - n_main,
+    emit({"train_sweep_cases": n_cases, "edge_cases": n_scen - n_main,
+          "scenario_cases": n_cases - n_scen, "scenario_rows": rows,
           "edge_cases_unequal_tiles": unequal, "tol": TOL,
           "max_abs_err": worst, "k4_max_scaled_err": scaled,
           "autograd_card_vs_cpu": ag})
     return worst
+
+
+def _scenario_rows() -> dict:
+    """Megabatch rows per subdomain of the scenarios' problems (built on
+    the CPU: points only)."""
+    from repro_torch.launch import inverse_heat_map as ihm
+    from repro_torch.launch import navier_stokes_cavity as nsc
+
+    return {"cavity": _rows(nsc.build_problem(device="cpu").batch),
+            "us_map": _rows(ihm.build_problem(device="cpu").batch),
+            "us_map_paper": _rows(ihm.build_problem(
+                width=80, counts=PAPER_COUNTS, device="cpu").batch)}
 
 
 def _k4_plan(n_sub, n, d_in, width, depth, n_out, d2) -> tuple[int, int]:
@@ -1613,6 +1662,316 @@ def distributed_phase(dev) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ scenarios
+
+# The bars hold the entry points at the reference examples' own settings,
+# each a ratio of the reference's result (the examples at their defaults on
+# a CPU, jax 0.9.0): trajectories part with the order of float32 sums, so a
+# bar is a ratio, not a match.  Inverse problem: rel-L2 of (T, K) after
+# 2000 steps at most 1.5 x the reference's 0.0098, and the served K field's
+# rel-L2 at most 2 x its 0.0057 (K is the inferred unknown, and one number
+# is a thin sample of its spread, hence the wider ratio).  Cavity: the Ghia
+# centerline RMS after 4000 steps at most 1.5 x the reference's 0.0782 (a
+# field of u = 0 scores 0.272).
+INVERSE_BAR = 1.5 * 0.0098
+INVERSE_SERVE_BAR = 2 * 0.0057
+CAVITY_BAR = 1.5 * 0.0782
+# paper Table 3's residual points per region, unscaled (the example divides
+# them by 10)
+PAPER_COUNTS = [3000, 4000, 5000, 4000, 3000, 4000, 800, 3000, 5000, 4000]
+PAPER_STEPS = 500            # (b): the paper's size, timed; no bar
+FUSED_INVERSE_STEPS = 2000   # (c)
+CAVITY_TURN_STEPS = 100      # (e): chunks timed in turns
+LBFGS_ADAM_STEPS, LBFGS_ITERS = 300, 60
+LBFGS_PROBES = 14            # LBFGSConfig.n_probes
+# 10 steps of one problem on two routes from one init: the distributed
+# phase's bounds (params, summed loss relative)
+SCEN_PARAM_TOL, SCEN_LOSS_RTOL = 1e-5, 1e-4
+K1, K2, K3, K4 = ("pinn_mlp_fwd1", "pinn_mlp_fwd2", "pinn_mlp_fwd2_res",
+                  "pinn_mlp_bwd2")
+
+
+def _last_json(text: str, key: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])[key]
+
+
+def _train_timed(tr, b, steps, chunk, state=None):
+    """``steps`` outer steps in chunks from ``state`` (a fresh init by
+    default): (state, ms per step over the chunks, last summed loss)."""
+    import torch
+
+    state = tr.init(SEED) if state is None else state
+    done, secs, loss = 0, 0.0, float("nan")
+    while done < steps:
+        n = min(chunk, steps - done)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, terms = tr.run_chunk(state, b, n)
+        loss = float(terms["loss"][-1].sum())    # waits for the chunk
+        secs += time.perf_counter() - t0
+        done += n
+    return state, secs * 1e3 / steps, loss
+
+
+def _parity(tr_a, b_a, tr_b, b_b, steps=10) -> dict:
+    """``steps`` steps of two trainers of one problem from one init (drawn
+    on ``tr_a``'s side, moved to ``tr_b``'s device): the largest parameter
+    difference and the largest relative difference of the summed loss."""
+    from repro_torch.core import TrainState
+    from repro_torch.core.nets import map_tree, tree_leaves
+    from repro_torch.optim.adam import init_adam
+
+    s_a = tr_a.init(SEED)
+    p_b = map_tree(lambda t: t.to(tr_b.device), s_a.params)
+    s_b = TrainState(params=p_b, opt=init_adam(p_b),
+                     step=s_a.step.to(tr_b.device))
+    s_a, t_a = tr_a.run_chunk(s_a, b_a, steps)
+    s_b, t_b = tr_b.run_chunk(s_b, b_b, steps)
+    la, lb = t_a["loss"].sum(1).cpu(), t_b["loss"].sum(1).cpu()
+    par = max(float((x.cpu() - y.cpu()).abs().max()) for x, y in
+              zip(tree_leaves(s_a.params), tree_leaves(s_b.params)))
+    loss = float(((la - lb).abs() / la.abs()).max())
+    check(par <= SCEN_PARAM_TOL, f"{steps}-step params differ by {par:.3e}")
+    check(loss <= SCEN_LOSS_RTOL, f"{steps}-step loss differs by {loss:.3e}")
+    return {"param_max_abs": par, "loss_max_rel": loss,
+            "loss_last": float(lb[-1]), "states": (s_a, s_b)}
+
+
+def _no_kernels(counts, plain, what):
+    check(not any(counts.values()), f"{what}: kernels launched {counts}")
+    check(not any(plain.values()), f"{what}: plain versions on CUDA {plain}")
+
+
+def scenarios_phase(dev) -> dict:
+    """The paper's PINN scenarios on the card, each run with the launch
+    counts set to 0 just before and read just after: (a) the inverse heat
+    map at the example's defaults (jvp path, Table-3 activations) through
+    ``launch.inverse_heat_map.main --export --serve-demo``, held to its
+    bars, no kernel; (b) the same problem at the paper's size (3 x 80 per
+    net, Table 3's unscaled counts), timed; (c) the us_map with one shared
+    tanh on the fused path at 3 x 80: 10 steps card against CPU, then 2000
+    steps with two K3 and two K4 a step; (d) the cavity at its defaults
+    through ``launch.navier_stokes_cavity.main``, held to its bar; (e) the
+    cavity at 80 x 5 fused: 10 steps against the jvp path, 4000 steps with
+    one K3 and one K4 a step, both paths timed in turns; (f) Adam then
+    L-BFGS on vanilla Burgers, gradients through K3/K4 and probes through
+    K2."""
+    import torch
+    from repro_torch.kernels import pinn_mlp as K
+    from repro_torch.launch import inverse_heat_map as ihm
+    from repro_torch.launch import navier_stokes_cavity as nsc
+
+    t_phase = time.perf_counter()
+    out = {"card": _smi()}
+    total = dict.fromkeys((K1, K2, K3, K4), 0)
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    # (a) the inverse problem at the example's defaults, train -> serve
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_inv_") as tmp:
+        rc, text, secs, counts, plain = _counted(ihm.main, [
+            "--device", str(dev), "--export", os.path.join(tmp, "field"),
+            "--serve-demo"])
+    rep = _last_json(text, "inverse")
+    srv = rep["serve"]
+    check(rc == 0, f"inverse_heat_map exited {rc}")
+    _no_kernels(counts, plain, "(a) inverse, Table-3 activations")
+    check(rep["rel_l2"] <= INVERSE_BAR,
+          f"(a) rel-L2(T,K) {rep['rel_l2']:.4f} > {INVERSE_BAR:.4f}")
+    check(srv["k_rel_l2"] <= INVERSE_SERVE_BAR,
+          f"(a) served K rel-L2 {srv['k_rel_l2']:.4f} > "
+          f"{INVERSE_SERVE_BAR:.4f}")
+    check(srv["dispatches"] == 1 and srv["frontend"]["cache_hits"] == 1,
+          f"(a) serve demo: {srv['dispatches']} dispatches")
+    out["a_inverse"] = {
+        "steps": rep["steps"], "seconds": secs, "rel_l2": rep["rel_l2"],
+        "bar": INVERSE_BAR, "k_rel_l2_served": srv["k_rel_l2"],
+        "serve_bar": INVERSE_SERVE_BAR,
+        "residual_median": srv["residual_median"],
+        "residual_p99": srv["residual_p99"],
+        "cold_pts_per_s": srv["cold_pts_per_s"],
+        "cached_pts_per_s": srv["cached_pts_per_s"],
+        "steps_per_s": [r["steps_per_s"] for r in rep["chunks"]],
+        "rel_l2_rows": [[r["step"], r["rel_l2"]] for r in rep["chunks"]],
+        "launches": counts}
+    emit({"scenario": "a", **out["a_inverse"]})
+
+    # (b) the paper's size: 3 x 80 per net, Table 3's unscaled counts
+    def paper():
+        prob = ihm.build_problem(width=80, counts=PAPER_COUNTS, device=dev)
+        b = prob.batch.device_arrays(dev)
+        st, ms, loss = _train_timed(prob.trainer, b, PAPER_STEPS, 250)
+        return ms, loss, prob.rel_l2(st.params), _rows(prob.batch)
+
+    (ms, loss, err, rows), _, secs, counts, plain = _counted(paper)
+    _no_kernels(counts, plain, "(b) inverse at the paper's size")
+    out["b_inverse_paper"] = {"steps": PAPER_STEPS, "ms_per_step": ms,
+                              "loss": loss, "rel_l2": err, "rows": rows,
+                              "seconds": secs}
+    emit({"scenario": "b", **out["b_inverse_paper"]})
+
+    # (c) one shared tanh on the fused path at 3 x 80: parity, then 2000
+    def fused_inverse(device):
+        prob = ihm.build_problem(width=80, act_codes=["tanh"] * 10,
+                                 residual_path="fused", device=device)
+        return prob, prob.batch.device_arrays(prob.trainer.device)
+
+    (p_cpu, b_cpu), (p_gpu, b_gpu) = fused_inverse("cpu"), \
+        fused_inverse(dev)
+    par, _, _, counts, plain = _counted(_parity, p_cpu.trainer, b_cpu,
+                                        p_gpu.trainer, b_gpu)
+    check(counts[K3] == counts[K4] == 20, f"(c) parity launches {counts}")
+    add(counts)
+
+    def fused_run():
+        st, ms, loss = _train_timed(p_gpu.trainer, b_gpu,
+                                    FUSED_INVERSE_STEPS, 250)
+        return ms, loss, st
+
+    (ms, loss, st), _, secs, counts, plain = _counted(fused_run)
+    check(counts[K3] == counts[K4] == 2 * FUSED_INVERSE_STEPS,
+          f"(c) {counts} launches for {FUSED_INVERSE_STEPS} steps x 2 nets")
+    check(not any(plain.values()), f"(c) plain versions on CUDA {plain}")
+    add(counts)
+    err, _, _, c_l2, plain = _counted(p_gpu.rel_l2, st.params)
+    check(c_l2[K1] == 2 and not any(plain.values()),
+          f"(c) rel-L2 through K1: {c_l2}, plain {plain}")
+    add(c_l2)
+    out["c_inverse_fused"] = {
+        "steps": FUSED_INVERSE_STEPS, "ms_per_step": ms, "loss": loss,
+        "rel_l2": err, "parity_10": {k: par[k] for k in
+                                     ("param_max_abs", "loss_max_rel")},
+        "launches": counts, "rel_l2_launches": c_l2, "seconds": secs}
+    emit({"scenario": "c", **out["c_inverse_fused"]})
+
+    # (d) the cavity at its defaults (jvp, 40 x 5, 4000 steps)
+    rc, text, secs, counts, plain = _counted(nsc.main,
+                                             ["--device", str(dev)])
+    rep = _last_json(text, "cavity")
+    check(rc == 0, f"navier_stokes_cavity exited {rc}")
+    _no_kernels(counts, plain, "(d) cavity, jvp path")
+    check(rep["ghia_rms"] <= CAVITY_BAR,
+          f"(d) Ghia RMS {rep['ghia_rms']:.4f} > {CAVITY_BAR:.4f}")
+    out["d_cavity"] = {
+        "steps": rep["steps"], "seconds": secs, "ghia_rms": rep["ghia_rms"],
+        "bar": CAVITY_BAR, "centerline": rep["centerline"],
+        "losses": [[r["step"], r["loss"]] for r in rep["chunks"]],
+        "steps_per_s": [r["steps_per_s"] for r in rep["chunks"]]}
+    emit({"scenario": "d", **out["d_cavity"]})
+
+    # (e) the cavity at the paper's width on the fused path
+    probs = {path: nsc.build_problem(width=80, residual_path=path,
+                                     device=dev) for path in ("fused", "jvp")}
+    bs = {k: p.batch.device_arrays(dev) for k, p in probs.items()}
+    par, _, _, counts, plain = _counted(
+        _parity, probs["jvp"].trainer, bs["jvp"], probs["fused"].trainer,
+        bs["fused"])
+    check(counts[K3] == counts[K4] == 10, f"(e) parity launches {counts}")
+    add(counts)
+    s_j, s_f = par["states"]
+    # the jvp step without its graph (the eager step loop), for scale
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probs["jvp"].trainer._loop(s_j, lambda i: bs["jvp"], 5)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / 5
+    states = {"fused": s_f, "jvp": s_j}
+    turns = {"fused": [], "jvp": []}
+    for path in ("fused", "jvp", "jvp", "fused"):
+        states[path], ms, _ = _train_timed(
+            probs[path].trainer, bs[path], CAVITY_TURN_STEPS,
+            CAVITY_TURN_STEPS, states[path])
+        turns[path].append(ms)
+    steps = int(nsc.REPORT_EVERY * 8)
+
+    def cavity_fused():
+        st, ms, loss = _train_timed(probs["fused"].trainer, bs["fused"],
+                                    steps, nsc.REPORT_EVERY)
+        line = nsc.centerline(probs["fused"], st.params)
+        return ms, loss, line
+
+    (ms, loss, line), _, secs, counts, plain = _counted(cavity_fused)
+    check(counts[K3] == counts[K4] == steps,
+          f"(e) {counts} launches for {steps} steps")
+    check(not any(plain.values()), f"(e) plain versions on CUDA {plain}")
+    add(counts)
+    out["e_cavity_fused"] = {
+        "steps": steps, "ms_per_step": ms, "loss": loss,
+        "ghia_rms": nsc.ghia_rms(line), "centerline": line.tolist(),
+        "parity_10_vs_jvp": {k: par[k] for k in
+                             ("param_max_abs", "loss_max_rel")},
+        "turns_ms_per_step": turns, "jvp_eager_ms_per_step": eager_ms,
+        "launches": counts, "seconds": secs}
+    emit({"scenario": "e", **out["e_cavity_fused"]})
+    del probs, bs, states, par
+
+    # (f) Adam then L-BFGS on vanilla Burgers, on the fused path
+    def recipe():
+        from repro_torch.core import (Burgers1D, CartesianDecomposition,
+                                      losses)
+        from repro_torch.core.nets import (MLPConfig, SubdomainModelConfig,
+                                           init_model, map_tree, tree_leaves,
+                                           tree_unflatten)
+        from repro_torch.data import make_vanilla_batch
+        from repro_torch.optim import adam, lbfgs_refine
+
+        pde = Burgers1D()
+        dec = CartesianDecomposition(((-1, 1), (0, 1)), 1, 1)
+        cfg = SubdomainModelConfig(nets={"u": MLPConfig(2, 1, 20, 3)})
+        batch = make_vanilla_batch(dec, pde, 512, 64,
+                                   np.random.default_rng(SEED), device=dev)
+        path = losses.ResidualPath(act="tanh")
+        loss_fn = lambda p: losses.vanilla_pinn_loss(
+            pde, cfg, losses.LossWeights(), p, 0, None, batch, path)[0]
+        params = map_tree(lambda t: t.to(dev),
+                          init_model(cfg, torch.Generator().manual_seed(SEED)))
+        opt = adam.init_adam(params)
+        for _ in range(LBFGS_ADAM_STEPS):
+            leaves = [t.detach().requires_grad_()
+                      for t in tree_leaves(params)]
+            p = tree_unflatten(params, leaves)
+            loss = loss_fn(p)
+            grads = tree_unflatten(p, torch.autograd.grad(loss, leaves))
+            params, opt = adam.adam_update(grads, opt, params, 2e-3)
+        adam_loss = float(loss.detach())
+        adam_counts = dict(K.launches)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, hist = lbfgs_refine(loss_fn, params, LBFGS_ITERS)
+        ms = (time.perf_counter() - t0) * 1e3 / LBFGS_ITERS
+        return adam_loss, hist, ms, adam_counts
+
+    (adam_loss, hist, ms, adam_counts), _, secs, counts, plain = _counted(
+        recipe)
+    check(adam_counts[K3] == adam_counts[K4] == LBFGS_ADAM_STEPS,
+          f"(f) Adam launches {adam_counts}")
+    check(counts[K3] == counts[K4] == 2 * LBFGS_ITERS,
+          f"(f) L-BFGS gradients: {counts}")
+    check(counts[K2] == LBFGS_PROBES * LBFGS_ITERS,
+          f"(f) L-BFGS probes on K2: {counts}")
+    check(not any(plain.values()), f"(f) plain versions on CUDA {plain}")
+    check(all(b <= a + 1e-6 for a, b in zip(hist, hist[1:])),
+          "(f) L-BFGS losses increased")
+    check(hist[-1] < 0.9 * adam_loss,
+          f"(f) L-BFGS {hist[-1]:.4e} not below 0.9 x Adam {adam_loss:.4e}")
+    add(adam_counts)
+    add(counts)
+    out["f_lbfgs"] = {"adam_steps": LBFGS_ADAM_STEPS, "adam_loss": adam_loss,
+                      "iterations": LBFGS_ITERS, "losses": hist,
+                      "ms_per_iteration": ms, "adam_launches": adam_counts,
+                      "launches": counts, "seconds": secs}
+    emit({"scenario": "f", **{k: v for k, v in out["f_lbfgs"].items()
+                              if k != "losses"}})
+    torch.cuda.synchronize()
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"scenarios": out})
+    return total
+
+
 # ---------------------------------------------------------------- LLM kernels
 
 def _allclose(got, want, tol) -> float:
@@ -1993,7 +2352,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every phase's numbers to this JSON")
-    ap.add_argument("--only", default=None, choices=("distributed",),
+    ap.add_argument("--only", default=None,
+                    choices=("distributed", "scenarios"),
                     help="only the build and this phase (no result line)")
     ap.add_argument("--ab", default=None, metavar="DIR",
                     help="only time this checkout's K3/K4 against the "
@@ -2030,7 +2390,8 @@ def main(argv=None) -> int:
         return 0
     if args.only:
         phase("build", build_phase)
-        phase(args.only, distributed_phase, dev)
+        phase(args.only, {"distributed": distributed_phase,
+                          "scenarios": scenarios_phase}[args.only], dev)
         print(_smi())
         return 0
     phase("build", build_phase)
@@ -2052,6 +2413,8 @@ def main(argv=None) -> int:
         "other_ms": train["step_ms"] - t3["ms"] - t4["ms"]}})
     phase("runtime", runtime_phase, dev)
     for k, v in phase("distributed", distributed_phase, dev).items():
+        launches[k] = launches.get(k, 0) + v
+    for k, v in phase("scenarios", scenarios_phase, dev).items():
         launches[k] = launches.get(k, 0) + v
     worst.update(phase("lm kernels", lm_sweep, dev))
     times.update(phase("lm timing", lm_timing, dev))

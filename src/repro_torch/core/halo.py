@@ -28,9 +28,9 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from repro_torch.core.domain import Topology
+from repro_torch.obs.profiling import scope
 
 
 def gather_index(topo: Topology, device=None):
@@ -47,7 +47,7 @@ def exchange_gather(payload: torch.Tensor, topo: Topology,
     """payload (n_sub, K, n_iface, C) stacked -> received, zeros where no
     neighbour.  ``index`` is :func:`gather_index`'s result (built here when
     not given)."""
-    with record_function("dd-comm-halo"):
+    with scope("comm"):
         safe, k_idx, has = (gather_index(topo, payload.device)
                             if index is None else index)
         recv = payload[safe, k_idx]                # (n_sub, K, n_iface, C)
@@ -183,7 +183,7 @@ class _P2PExchange(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        with record_function("dd-comm-halo"):
+        with scope("comm"):
             rev = [(src, dst) for dst, src in ctx.peers]
             return ctx.comm.exchange(grad, rev), None, None
 
@@ -192,7 +192,7 @@ def exchange_p2p(payload: torch.Tensor, peers, comm: Comm) -> torch.Tensor:
     """payload (1, K, n_iface, C), this rank's slots -> the received
     (1, K, n_iface, C), zeros where the rank has no partner.  ``peers``
     from :func:`p2p_peers`."""
-    with record_function("dd-comm-halo"):
+    with scope("comm"):
         return _P2PExchange.apply(payload, peers, comm)
 
 

@@ -42,10 +42,9 @@ def dir_deriv2(u_fn: Fn, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def _basis(x: torch.Tensor, i: int) -> torch.Tensor:
-    """Unit vector e_i shaped, typed and placed like the point x."""
-    e = torch.zeros(x.shape[-1], dtype=x.dtype, device=x.device)
-    e[i] = 1.0
-    return e
+    """Unit vector e_i shaped, typed and placed like the point x (built on
+    the device alone, so a CUDA graph can capture it)."""
+    return (torch.arange(x.shape[-1], device=x.device) == i).to(x.dtype)
 
 
 class PDE:

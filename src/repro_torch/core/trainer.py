@@ -41,8 +41,15 @@ terms stay on the device, stacked (steps, n_sub), and the guard decides on
 the device with ``torch.where`` over the carried state.  Across ranks each
 step's exchange (and, guarded, one MIN all-reduce of the ok flag) passes
 through the host; the terms are stitched to (steps, n_sub) by one
-all-gather per chunk.  Capturing a chunk in a CUDA graph is left to a later
-change.
+all-gather per chunk.
+
+One exception: ``ReferenceTrainer.run_chunk`` on the jvp path on a CUDA
+card replays a CUDA graph of one outer step (:class:`_StepGraph`).  The
+per-point ``torch.func`` transforms dispatch some 50,000 operations from the
+host each step; replayed, a step costs the device's time only, with the
+same result bit for bit.  That path launches none of the port's kernels,
+so no launch count is lost.  Capturing the fused path's chunk is left to a
+later change.
 """
 from __future__ import annotations
 
@@ -63,6 +70,7 @@ from repro_torch.core.nets import (SubdomainModelConfig, map_tree, map_trees,
 from repro_torch.core.pdes import PDE
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.obs.profiling import scope
 from repro_torch.optim import adam as adam_lib
 from repro_torch.optim.compress import CompressionConfig, compress_decompress
 
@@ -273,7 +281,7 @@ class _DDCommon:
         terms = grads = None
         for i in range(cfg.local_steps):
             p = map_tree(lambda t: t.detach().requires_grad_(), params)
-            with record_function("dd-comp-forward"):
+            with scope("comp_forward"):
                 outs = self._net_eval(p, batch)
             if i == 0:  # communicate once per outer step (Algorithm 1)
                 own = outs[1]
@@ -282,7 +290,7 @@ class _DDCommon:
                 recv = own if cfg.disable_exchange else self._exchange(own)
             else:  # the received payload stays frozen: a constant now
                 recv = {k: v.detach() for k, v in recv.items()}
-            with record_function("dd-comp-update"):
+            with scope("comp_update"):
                 total, terms = self._assemble(batch, outs, recv)
                 leaves = tree_leaves(p)
                 grads = tree_unflatten(p, torch.autograd.grad(total.sum(),
@@ -368,6 +376,45 @@ class _DDCommon:
         return _traced_dispatch(self, "train.run_chunk_guarded", steps, call)
 
 
+class _StepGraph:
+    """One outer step captured in a CUDA graph that updates the state in
+    place: replaying it runs the step on the captured batch and learning
+    rates, then copies the new params, Adam state and step count over the
+    graph's static inputs.  The batch must stay the same tensors (its
+    addresses are in the graph)."""
+
+    def __init__(self, trainer, state: TrainState, batch: SubBatch, lrs):
+        dev = trainer.device
+        clone = lambda t: t.detach().clone()
+        self.batch = batch
+        self.static = (map_tree(clone, state.params),
+                       map_tree(clone, state.opt), clone(state.step))
+        # warm-up on a side stream (lazy initialisations stay out of the
+        # graph), as torch.cuda.graphs asks
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                trainer._outer_body(*self.static, batch, lrs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            out, self.terms = trainer._outer_body(*self.static, batch, lrs)
+            map_trees(lambda d, t: d.copy_(t), self.static, out)
+
+    def load(self, state: TrainState) -> None:
+        map_trees(lambda d, t: d.copy_(t), self.static,
+                  (state.params, state.opt, state.step))
+
+    def step(self) -> dict:
+        self.graph.replay()
+        return {k: v.clone() for k, v in self.terms.items()}
+
+    def state(self) -> TrainState:
+        params, opt, step = map_tree(torch.Tensor.clone, self.static)
+        return TrainState(params=params, opt=opt, step=step)
+
+
 class ReferenceTrainer(_DDCommon):
     """Every subdomain in one process: batched subdomain axis + gather
     exchange."""
@@ -375,6 +422,17 @@ class ReferenceTrainer(_DDCommon):
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
         self._halo = halo.gather_index(self.topo, self.device)
+        # the jvp path on a card replays a captured step (module docstring)
+        self._graphed = self.device.type == "cuda" and self.res_path is None
+        self._graph: _StepGraph | None = None
+
+    def _graph_loop(self, state: TrainState, batch: SubBatch, steps: int):
+        g = self._graph
+        if g is None or g.batch is not batch:
+            g = self._graph = _StepGraph(self, state, batch, self._lrs)
+        g.load(state)
+        rows = [g.step() for _ in range(steps)]
+        return g.state(), _stack_terms(rows)
 
     def _exchange(self, own: dict) -> dict:
         return halo.exchange_tree_gather(own, self.topo, self._halo)
@@ -395,6 +453,8 @@ class ReferenceTrainer(_DDCommon):
             n = batch.res_pts.shape[0]
             call = lambda: self._loop(state, lambda i: _batch_at(batch, i),
                                       n)
+        elif self._graphed:
+            call = lambda: self._graph_loop(state, batch, steps)
         else:
             call = lambda: self._loop(state, lambda i: batch, steps)
         return _traced_dispatch(self, "train.run_chunk", steps, call)
@@ -604,7 +664,7 @@ class DataParallelTrainer:
         """One all-reduce-Adam update for this worker (``err``: its
         error-feedback slice, a leading axis of 1)."""
         p = map_tree(lambda t: t.detach().requires_grad_(), params)
-        with record_function("dd-comp-forward"):
+        with scope("comp_forward"):
             total, terms = losses.vanilla_pinn_loss(
                 self.pde, self.model_cfg, self.weights, p, self.act_code,
                 None, batch, path=self.res_path)
@@ -617,7 +677,7 @@ class DataParallelTrainer:
             err = map_tree(lambda t: t[None], e)
         if self.comm is not None:
             g, terms = self._mean(g, terms)
-        with record_function("dd-comp-update"):
+        with scope("comp_update"):
             new_params, new_opt = adam_lib.adam_update(
                 g, opt, map_tree(torch.Tensor.detach, p), lr, self.adam_cfg)
         if self.telemetry:

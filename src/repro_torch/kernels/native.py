@@ -6,7 +6,8 @@ first use into ``repro_torch/_build/`` (listed in ``.gitignore``), under a
 file name keyed on a hash of the source and the flags, so an edited source
 is rebuilt and an unchanged one is reused.  :func:`build` starts one
 ``nvcc`` per source, all at once.  Nothing is built or imported when this
-module is imported.
+module is imported.  Every ``nvcc`` run and every library loaded is told to
+the callables in :data:`listeners` (``obs.profiling.CompileWatcher``).
 """
 from __future__ import annotations
 
@@ -23,6 +24,15 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# fn(kind, seconds), kind "build" (one nvcc run, its seconds) or "load" (one
+# library loaded into the process, 0.0)
+listeners: list = []
+
+
+def _notify(kind: str, seconds: float = 0.0) -> None:
+    for fn in listeners:
+        fn(kind, seconds)
+
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
@@ -76,6 +86,7 @@ def build(srcs=None) -> dict[str, dict]:
         Path(str(lib) + ".log").write_text(log)
         os.replace(tmp, lib)   # atomic: a concurrent loader never sees half
         out[src.stem] = {"path": str(lib), "seconds": secs, "log": log}
+        _notify("build", secs)
     if failures:
         raise RuntimeError("nvcc failed\n" + "\n".join(failures))
     return out
@@ -84,4 +95,6 @@ def build(srcs=None) -> dict[str, dict]:
 def load(stem: str) -> ctypes.CDLL:
     """Load the library built from ``csrc/<stem>.cu`` (built if needed);
     callers keep the handle."""
-    return ctypes.CDLL(build([CSRC / f"{stem}.cu"])[stem]["path"])
+    lib = ctypes.CDLL(build([CSRC / f"{stem}.cu"])[stem]["path"])
+    _notify("load")
+    return lib

@@ -12,7 +12,8 @@ Dispatch: CPU tensors run the plain recurrence (``kernels.ref``); CUDA
 tensors run the hand-written kernels (``kernels.pinn_mlp``).  The
 heterogeneous-activation entry (:func:`pinn_mlp_forward2_select`) is plain
 tensor code on both devices, as in the reference (which has no kernel for
-it either).
+it either), with the reference's hand-derived backward
+(:class:`_Forward2Select`).
 
 Training: :func:`pinn_mlp_forward2` is differentiable w.r.t. (x, Ws, bs, a)
 through :class:`_Forward2`, a ``torch.autograd.Function`` around the PACKED
@@ -45,6 +46,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import pinn_mlp, ref
 from repro_torch.kernels import wkv6 as _wkv6
+from repro_torch.obs.profiling import scope
 
 
 def width_pad(Ws) -> int:
@@ -127,7 +129,7 @@ class _Forward2(torch.autograd.Function):
         n_out, act, sel = ctx.n_out, ctx.act, ctx.sel
         if ctx.bwd == "ref":
             x, w, b, av = ctx.saved_tensors
-            with torch.enable_grad():
+            with torch.enable_grad(), scope("bwd_ref"):
                 ins = [t.detach().requires_grad_() for t in (x, w, b, av)]
                 outs = pinn_mlp.pinn_mlp_fwd2_plain(
                     *ins, n_out=n_out, act=act, d2_dirs=sel)
@@ -140,9 +142,10 @@ class _Forward2(torch.autograd.Function):
                      for g, t in zip(grads, ins)]
         else:
             x, w, av, res = ctx.saved_tensors
-            cx, cw, cb, ca = pinn_mlp.pinn_mlp_bwd2(
-                x, w, av, res, cu.contiguous(), cdu.contiguous(),
-                cd2u.contiguous(), n_out=n_out, act=act, d2_dirs=sel)
+            with scope("bwd_fused"):
+                cx, cw, cb, ca = pinn_mlp.pinn_mlp_bwd2(
+                    x, w, av, res, cu.contiguous(), cdu.contiguous(),
+                    cd2u.contiguous(), n_out=n_out, act=act, d2_dirs=sel)
             grads = [cx, cw, cb, ca]
         return (*grads, None, None, None, None)
 
@@ -182,15 +185,55 @@ def pinn_mlp_forward2(x, Ws, bs, a, act="tanh", d2_dirs=None, bwd="fused"):
     return _unbatch(outs, single)
 
 
+class _Forward2Select(torch.autograd.Function):
+    """The select path's second-order call with its hand-derived backward:
+    the counterpart of the reference's ``_forward2_select`` custom VJP
+    (``ops.py:280-300`` there).
+
+    ``forward(x, a, code, sel, n_layers, *Ws, *bs)``: the plain recurrence
+    with the activation chosen by ``code`` (already shaped to broadcast over
+    (N, w)), saving the reverse sweep's residuals; the backward is
+    :func:`ref._ref2_bwd` over them with the selected third derivative.  The
+    integer code gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, a, code, sel, n_layers, *wb):
+        Ws, bs = wb[:n_layers], wb[n_layers:]
+        outs, (hs, ts, ss) = ref._ref2_impl(
+            x, Ws, bs, a, ref._select_quad(code)[:3], sel, save=True)
+        ctx.sel, ctx.n_layers, ctx.n_saved = sel, n_layers, len(hs)
+        ctx.save_for_backward(x, a, code, *Ws, *hs, *ts, *ss)
+        return outs
+
+    @staticmethod
+    def backward(ctx, cu, cdu, cd2u):
+        x, a, code, *rest = ctx.saved_tensors
+        L, n = ctx.n_layers, ctx.n_saved
+        Ws = rest[:L]
+        res = (rest[L:L + n], rest[L + n:L + 2 * n], rest[L + 2 * n:])
+        with scope("bwd_fused_select"):
+            cx, cWs, cbs, ca = ref._ref2_bwd(x, Ws, a, res,
+                                             ref._select_quad(code), ctx.sel,
+                                             (cu, cdu, cd2u))
+        return (cx, ca, None, None, None, *cWs, *cbs)
+
+
 def pinn_mlp_forward2_select(x, Ws, bs, a, code, d2_dirs=None):
     """Second-order bundle with the activation chosen per subdomain by an
     integer ``code`` (0=tanh, 1=sin, 2=cos; a scalar, or one per subdomain
     when batched) — the serving path for heterogeneous (paper Table 3)
     activations.  Always the plain recurrence (``ref.pinn_mlp_ref2_select``),
-    as in the reference.  ``d2_dirs=()`` disables the second-order stream."""
-    return ref.pinn_mlp_ref2_select(x, Ws, bs, a, code,
-                                    None if d2_dirs is None
-                                    else tuple(d2_dirs))
+    as in the reference: no kernel computes it.  ``d2_dirs=()`` disables the
+    second-order stream.
+
+    Differentiable w.r.t. (x, Ws, bs, a) through :class:`_Forward2Select`,
+    the hand-derived reverse sweep (``ref._ref2_bwd``) with the selected
+    activation's derivative chain, as the reference's custom VJP."""
+    sel = None if d2_dirs is None else tuple(d2_dirs)
+    if not _needs_grad(x, a, *Ws, *bs):
+        return ref.pinn_mlp_ref2_select(x, Ws, bs, a, code, sel)
+    code = torch.as_tensor(code, device=x.device)[(...,) + (None, None)]
+    return _Forward2Select.apply(x, a, code, sel, len(Ws), *Ws, *bs)
 
 
 def pinn_mlp_forward2_segments(x_segs, Ws, bs, a, act="tanh", d2_dirs=None,

@@ -3,8 +3,9 @@
 Pure-Python copies of the reference package's registry, event log, tracer and
 Chrome-trace exporter, shared by the serving stack (``serve.frontend`` /
 ``serve.resilience`` staged latency histograms, ``serve.engine`` dispatch
-counters).  The compile watcher and HLO-based profiling helpers are JAX
-specific and are not part of this package.
+counters), and the profiling hooks (:mod:`repro_torch.obs.profiling`: the
+named-scope vocabulary, the kernels' build/load watcher, the comp/comm
+split and the analytic halo traffic).
 
 Entry points:
 
@@ -23,6 +24,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass
 
+from repro_torch.obs import profiling
 from repro_torch.obs.events import (EVENT_KINDS, EventLog, ObsSchemaError,
                                     SCHEMA_VERSION, check_fields, read_events,
                                     validate_events)
@@ -33,6 +35,9 @@ from repro_torch.obs.trace_export import (ChromeTraceError,
                                           halo_flow_events, to_chrome,
                                           training_timeline,
                                           validate_chrome_trace)
+from repro_torch.obs.profiling import (SCOPES, CompileWatcher,
+                                       comp_comm_split, compile_counts,
+                                       halo_traffic, scope)
 from repro_torch.obs.tracing import Span, Tracer
 
 
@@ -86,4 +91,6 @@ __all__ = [
     "ChromeTraceError", "export_chrome_trace", "halo_flow_events",
     "to_chrome", "training_timeline", "validate_chrome_trace",
     "Obs", "make_obs",
+    "profiling", "SCOPES", "scope", "CompileWatcher", "compile_counts",
+    "comp_comm_split", "halo_traffic",
 ]

@@ -268,6 +268,68 @@ def test_training_kernels_partition_edges_on_card(dev, width, depth, d_in,
             assert torch.equal(g, a)
 
 
+# the scenario shapes: the cavity (d_in 2, u/v/p out, depth 5; its
+# megabatch is 1500 residual + 2 x 32 interface + 120 boundary rows) and the
+# us_map's ten subdomains padded to their largest ragged count (500 + 3 x 16
+# + 198 rows in the example, 5000 + 48 + 198 at the paper's counts)
+@pytest.mark.parametrize("n_sub,n,width,depth,n_out,d2_dirs", [
+    (4, 1684, 40, 5, 3, None), (4, 1684, 80, 5, 3, None),
+    (4, 1684, 40, 5, 3, ()), (4, 1684, 80, 5, 3, ()),
+    (10, 746, 80, 3, 1, None), (10, 5246, 80, 3, 1, None)],
+    ids=["cavity-w40", "cavity-w80", "euler-w40", "euler-w80", "us-map",
+         "us-map-paper"])
+def test_training_kernels_at_the_scenario_shapes_on_card(
+        dev, n_sub, n, width, depth, n_out, d2_dirs):
+    """K3 and K4 against their plain versions at the shapes the cavity,
+    Euler1D and the us_map train at; K4 twice, bitwise."""
+    args = _packed(dev, n_sub=n_sub, n=n, d_in=2, width=width, depth=depth,
+                   n_out=n_out, seed=n + width)
+    got = pinn_mlp.pinn_mlp_fwd2_res(*args, n_out=n_out, d2_dirs=d2_dirs)
+    want = pinn_mlp.pinn_mlp_fwd2_res_plain(*args, n_out=n_out,
+                                            d2_dirs=d2_dirs)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    x, w, b, av = args
+    cts = _cotangents(dev, n_sub, n, 2, n_out, seed=n)
+    kern = pinn_mlp.pinn_mlp_bwd2(x, w, av, got[3], *cts, n_out=n_out,
+                                  d2_dirs=d2_dirs)
+    plain = pinn_mlp.pinn_mlp_bwd2_plain(x, w, av, got[3], *cts,
+                                         n_out=n_out, d2_dirs=d2_dirs)
+    again = pinn_mlp.pinn_mlp_bwd2(x, w, av, got[3], *cts, n_out=n_out,
+                                   d2_dirs=d2_dirs)
+    for g, p, a in zip(kern, plain, again):
+        _leaf_close(g, p)
+        assert torch.equal(g, a)
+
+
+def test_jvp_chunk_graph_equals_the_eager_loop_on_card(dev):
+    """The jvp path's chunk on the card replays a CUDA graph of one outer
+    step: the same params, Adam state and terms as the eager step loop,
+    bit for bit, over two chunks (the second reuses the graph)."""
+    from repro_torch.core import TrainState
+    from repro_torch.core.nets import tree_leaves
+    from repro_torch.launch import navier_stokes_cavity as nsc
+
+    prob = nsc.build_problem(width=12, device=dev)
+    tr = prob.trainer
+    assert tr._graphed
+    b = prob.batch.device_arrays(dev)
+    s0 = tr.init(0)
+    graphed, t1 = tr.run_chunk(s0, b, 3)
+    graph = tr._graph
+    graphed, t2 = tr.run_chunk(graphed, b, 2)
+    assert tr._graph is graph
+    eager = TrainState(params=s0.params, opt=s0.opt, step=s0.step)
+    eager, e1 = tr._loop(eager, lambda i: b, 3)
+    eager, e2 = tr._loop(eager, lambda i: b, 2)
+    for g, e in zip(tree_leaves((graphed.params, graphed.opt)),
+                    tree_leaves((eager.params, eager.opt))):
+        assert torch.equal(g, e)
+    assert int(graphed.step) == int(eager.step) == 5
+    for k in e1:
+        assert torch.equal(t1[k], e1[k]) and torch.equal(t2[k], e2[k])
+
+
 @pytest.mark.parametrize("bwd", ["fused", "ref"])
 def test_autograd_boundary_on_card_matches_cpu(dev, bwd):
     """torch.autograd.grad through ops.pinn_mlp_forward2 on the card (K3 +

@@ -53,7 +53,10 @@ def test_scan_sees_the_whole_port():
                  "kernels/wkv6.py", "launch/serve.py",
                  "runtime/failures.py", "runtime/chaos.py",
                  "runtime/elastic.py", "runtime/supervisor.py",
-                 "optim/compress.py", "launch/mesh.py", "launch/train.py"):
+                 "optim/compress.py", "launch/mesh.py", "launch/train.py",
+                 "optim/lbfgs.py", "obs/profiling.py",
+                 "launch/inverse_heat_map.py",
+                 "launch/navier_stokes_cavity.py"):
         assert must in names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core") and not _forbidden("jaxtyping_x")
