@@ -5,6 +5,7 @@
     python3 chip_smoke.py --ab DIR   # K3/K4 against DIR's sources, in turns
     python3 chip_smoke.py --only distributed   # build + phase 7 only
     python3 chip_smoke.py --only scenarios     # build + phase 8 only
+    python3 chip_smoke.py --only lm_train      # build + phase 13 only
 
 Run from the root of a checkout.  With ``--ab DIR`` only the build and an
 A/B runs: this checkout's K3 and K4 and the ones built from
@@ -103,15 +104,15 @@ any of them ends the run with a non-zero exit code and no result line:
    example's defaults (Table-3 activations, jvp path, 2000 steps) must
    reach rel-L2(T,K) <= 0.0147 and a served K field rel-L2 <= 0.0114 with
    no K1-K4 launch; (b) the same problem at the paper's size (3 x 80 per
-   net, Table 3's unscaled counts), 500 steps, timed; (c) the us_map with
+   net, Table 3's unscaled counts), 100 steps, timed; (c) the us_map with
    one shared tanh on the fused path at 3 x 80: 10 steps on the card
    against 10 on the CPU from one init (params 1e-5, summed loss 1e-4
-   relative), then 2000 steps with exactly 2 K3 + 2 K4 a step and its
+   relative), then 500 steps with exactly 2 K3 + 2 K4 a step and its
    rel-L2 through K1; (d) ``launch.navier_stokes_cavity.main`` at its
    defaults (jvp, 40 x 5, 4000 steps) must reach a Ghia centerline RMS
    <= 0.117; (e) the cavity at 80 x 5 on the fused path: 10 steps against
    the jvp path on the card (same bounds), the jvp step eager and both
-   paths in turns (fused, jvp, jvp, fused; chunks of 100), then 4000 steps
+   paths in turns (fused, jvp, jvp, fused; chunks of 100), then 1000 steps
    with exactly one K3 + one K4 a step; (f) vanilla Burgers
    (``MLPConfig(2, 1, 20, 3)``, 512 + 64 points): 300 Adam steps, then 60
    L-BFGS iterations, monotone and below 0.9 x the Adam loss, gradients
@@ -152,7 +153,34 @@ any of them ends the run with a non-zero exit code and no result line:
    full size (``--no-reduced --batch 4 --prompt-len 16 --gen 16``), twice
    (the first run pays the card's first-use costs): a (4, 32) token array,
    its tokens/s printed;
-13. **report** — one ``{"kernels": [...]}`` line (K1-K6), the card's name
+13. **lm train** — ``repro_torch.launch.train.main(["lm", ...])`` on the
+   card, each run with the counts set to 0 just before and read just
+   after: (a) llama3.2-1b at its published size, B = 4, S = 1024, 30
+   steps, checkpointed every 15: every loss finite, exactly steps x
+   layers x (1 + remat) K5 wrapper launches, each on the bf16 kernel, and
+   steps x layers VJP recomputes (``recomputes``), no plain version on a
+   CUDA tensor; (b) its step-15 checkpoint resumed to step 30: losses
+   16-30 and the params of the step-30 checkpoint bitwise equal to (a)'s,
+   and every leaf's CRC-32 (the Adam moments too) equal; (c) one ``CausalLM.loss`` and its
+   gradient, kernel path against ``plain=True`` (B = 1, S = 1024, both
+   models): float32 within LM_LOSS_RTOL (loss) and LM_GRAD_TOL (each leaf,
+   scaled by max(1, max |want|)), the bf16 difference printed; (d) five
+   recipe steps (``train.lm_train_step``) of the reduced models in
+   float32 from one set of params, card against CPU, within LM_CPU_TOL
+   (losses and params); (e) 40 steps of llama3.2-1b on one repeated batch
+   must end at <= 0.9 x the first loss; (f) rwkv6-3b at full width and 12
+   of its 32 layers, B = 1, T = 1024, 20 steps, counted as (a) on K6's
+   three kernels; (g) ms per step (median of the steps after the first
+   two), tokens/s and ``torch.cuda.max_memory_allocated`` of (a) and (f),
+   and torch.profiler over three steps of each (the last three of (e)):
+   device busy ms, idle share, the K5 / K6 kernels' ms and launch counts
+   (the traced remat factor), and the device ms inside the
+   ``flash_attention_vjp`` / ``wkv6_vjp``, ``fused_head_ce`` and
+   ``adam_update`` scopes; then K5 and K6 at the training shapes beside
+   their plain versions, SDPA and the training entry's forward and
+   backward;
+14. **report** — one ``{"kernels": [...]}`` line (K1-K6; K5 and K6 also
+   at the training shapes), the card's name
    and power limit from ``nvidia-smi``, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Each phase prints its seconds.
@@ -179,6 +207,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -212,6 +241,11 @@ TRAIN_KERNELS = {"k3": "pinn_mlp_fwd_kernel", "k4": "pinn_mlp_bwd_kernel",
                  "k4_reduce": "pinn_mlp_bwd_reduce"}
 # the trainers' record_function scopes (the reference's named scopes)
 SCOPES = ("dd-comp-forward", "dd-comm-halo", "dd-comp-update")
+# the LM training step's scopes: the K5 / K6 training entries' VJP
+# recomputes, the fused head cross-entropy's chunks (forward and
+# backward) and the Adam update
+LM_SCOPES = ("flash_attention_vjp", "wkv6_vjp", "fused_head_ce",
+             "adam_update")
 REPLACES = {"pinn_mlp_fwd1": "src/repro/kernels/pinn_mlp.py:82",
             "pinn_mlp_fwd2": "src/repro/kernels/pinn_mlp.py:148",
             "pinn_mlp_fwd2_res": "src/repro/kernels/pinn_mlp.py:166",
@@ -233,6 +267,24 @@ WKV_TOL = 2e-4
 LLM_F32_TOL = 1e-4
 DECODE_TOL = 2e-3        # decode vs prefill, the reference's bound
 LLM = {"llama3.2-1b": (2, 1024), "rwkv6-3b": (1, 1024)}   # prefill (B, S)
+# lm_train's runs of ``launch.train lm``: llama3.2-1b at its published size
+# (B x S cut from train_4k's 256 x 4096), checkpointed every LM_CKPT_EVERY
+# steps and resumed; rwkv6-3b at full width and 12 of its 32 layers: with
+# an out-of-place Adam the step's peak holds seven float32 copies of the
+# params, 86 GB at 3.06 B params, more than the card's 80 GB
+LM_TRAIN = {"llama3.2-1b": {"batch": 4, "seq": 1024, "steps": 30,
+                            "layers": None, "resume": True},
+            "rwkv6-3b": {"batch": 1, "seq": 1024, "steps": 20,
+                         "layers": 12, "resume": False}}
+LM_CKPT_EVERY = 15
+# one loss and its gradient, kernel path against plain path in float32:
+# the loss relative, each gradient leaf scaled by max(1, max |want|)
+# (chip_smoke's rule for K4)
+LM_LOSS_RTOL = 1e-5
+LM_GRAD_TOL = 1e-4
+LM_CPU_TOL = 1e-5        # 5 recipe steps, card against CPU, float32
+LM_LEARN_STEPS = 40      # steps on one repeated batch ...
+LM_LEARN = 0.9           # ... after which the loss is <= 0.9 x the first
 # the serving path's shape (width, depth, points per subdomain): the served
 # Burgers net at a serving batch; timing() runs it with n_sub=4, d_in=2
 MAIN = (24, 4, 512)
@@ -1679,8 +1731,9 @@ CAVITY_BAR = 1.5 * 0.0782
 # paper Table 3's residual points per region, unscaled (the example divides
 # them by 10)
 PAPER_COUNTS = [3000, 4000, 5000, 4000, 3000, 4000, 800, 3000, 5000, 4000]
-PAPER_STEPS = 500            # (b): the paper's size, timed; no bar
-FUSED_INVERSE_STEPS = 2000   # (c)
+PAPER_STEPS = 100            # (b): the paper's size, timed; no bar
+FUSED_INVERSE_STEPS = 500    # (c): no bar
+CAVITY_FUSED_STEPS = 1000    # (e): no bar
 CAVITY_TURN_STEPS = 100      # (e): chunks timed in turns
 LBFGS_ADAM_STEPS, LBFGS_ITERS = 300, 60
 LBFGS_PROBES = 14            # LBFGSConfig.n_probes
@@ -1749,10 +1802,10 @@ def scenarios_phase(dev) -> dict:
     ``launch.inverse_heat_map.main --export --serve-demo``, held to its
     bars, no kernel; (b) the same problem at the paper's size (3 x 80 per
     net, Table 3's unscaled counts), timed; (c) the us_map with one shared
-    tanh on the fused path at 3 x 80: 10 steps card against CPU, then 2000
+    tanh on the fused path at 3 x 80: 10 steps card against CPU, then 500
     steps with two K3 and two K4 a step; (d) the cavity at its defaults
     through ``launch.navier_stokes_cavity.main``, held to its bar; (e) the
-    cavity at 80 x 5 fused: 10 steps against the jvp path, 4000 steps with
+    cavity at 80 x 5 fused: 10 steps against the jvp path, 1000 steps with
     one K3 and one K4 a step, both paths timed in turns; (f) Adam then
     L-BFGS on vanilla Burgers, gradients through K3/K4 and probes through
     K2."""
@@ -1884,7 +1937,7 @@ def scenarios_phase(dev) -> dict:
             probs[path].trainer, bs[path], CAVITY_TURN_STEPS,
             CAVITY_TURN_STEPS, states[path])
         turns[path].append(ms)
-    steps = int(nsc.REPORT_EVERY * 8)
+    steps = CAVITY_FUSED_STEPS
 
     def cavity_fused():
         st, ms, loss = _train_timed(probs["fused"].trainer, bs["fused"],
@@ -2177,12 +2230,14 @@ def lm_timing(dev) -> dict:
     return out
 
 
-def _device_split(fn, kernels=None) -> dict:
+def _device_split(fn, kernels=None, scopes=()) -> dict:
     """One call of ``fn`` under torch.profiler: the device time of every
     kernel and copy it ran (events on the CUDA device only, each counted
     once), the part of it in each device kernel of ``kernels`` (name ->
-    symbol; DEVICE_KERNELS, the K5/K6 kernels, by default), the largest
-    items, and the host-clock ms of the profiled call."""
+    symbol; DEVICE_KERNELS, the K5/K6 kernels, by default) and how many
+    times each ran, the device time of the kernels launched inside each
+    ``record_function`` scope named in ``scopes``, the largest items, and
+    the host-clock ms of the profiled call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2197,23 +2252,33 @@ def _device_split(fn, kernels=None) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     busy = 0.0
     kern = dict.fromkeys(kernels, 0.0)
+    count = dict.fromkeys(kernels, 0)
     top = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
             continue
         # a record_function scope is also a device-side annotation whose
         # span covers the kernels inside it: it is not work of its own
-        if getattr(ev, "is_user_annotation", False) or ev.key in SCOPES:
+        if getattr(ev, "is_user_annotation", False) or \
+                ev.key in SCOPES + LM_SCOPES:
             continue
         ms = ev.self_device_time_total / 1e3
         busy += ms
         for name, sym in kernels.items():
             if re.search(rf"\b{sym}\b", ev.key):
                 kern[name] += ms
+                count[name] += ev.count
         top.append((ms, ev.count, ev.key[:70]))
     top.sort(reverse=True)
+    # a host-side scope's device time: the kernels its ops (and their
+    # children) launched
+    scope_ms = dict.fromkeys(scopes, 0.0)
+    for ev in prof.events():
+        if ev.name in scope_ms and ev.device_type == DeviceType.CPU:
+            scope_ms[ev.name] += ev.device_time_total / 1e3
     return {"device_busy_ms": busy, "k5_k6_ms": sum(kern.values()),
-            "kernel_ms": kern, "device_events": sum(n for _, n, _ in top),
+            "kernel_ms": kern, "kernel_count": count, "scope_ms": scope_ms,
+            "device_events": sum(n for _, n, _ in top),
             "top": [[round(t, 3), n, k] for t, n, k in top[:8]],
             "profiled_wall_ms": wall}
 
@@ -2339,6 +2404,417 @@ def llm_serve_phase(dev) -> None:
             "new_tokens": runs[-1][1]["new_tokens"], "card": smi}})
 
 
+# ---------------------------------------------------------------- LM training
+
+def _train_lm(argv) -> dict:
+    """``launch.train.main(["lm", *argv])`` on the card: its JSON line."""
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(["lm", *argv])
+    check(rc == 0, f"train lm {argv} exited {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])["train_lm"]
+
+
+def _lm_counts() -> dict:
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import wkv6 as WK
+
+    return {**FA.launches, **FA.recomputes, **FA.plain_calls, **WK.launches,
+            **WK.recomputes, **WK.plain_calls}
+
+
+def _reset_lm_counts() -> None:
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import wkv6 as WK
+
+    FA.reset_launch_counts()
+    WK.reset_launch_counts()
+
+
+def _check_lm_counts(name, family, steps, layers, remat) -> dict:
+    """Exactly steps x layers x (1 + remat) wrapper launches of K5 (on the
+    bf16 kernel) or K6 (on its chunk, scan and output kernels) and steps x
+    layers VJP recomputes; nothing else, no plain version on the card."""
+    counts = _lm_counts()
+    n, fwd = steps * layers, steps * layers * (1 + int(remat))
+    want = ({"flash_attention": fwd, "flash_attention_sm90": fwd,
+             "flash_attention_vjp": n} if family == "dense" else
+            {"wkv6": fwd, "wkv6_chunk": fwd, "wkv6_scan": fwd,
+             "wkv6_out": fwd, "wkv6_vjp": n})
+    want = {k: want.get(k, 0) for k in counts}
+    check(counts == want, f"{name}: counts {counts}, want {want}")
+    return {k: v for k, v in counts.items() if v}
+
+
+def _lm_cfg(name):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    layers = LM_TRAIN[name]["layers"]
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def _lm_grads(model, params, batch, plain):
+    """``model.loss`` and its gradient in every param leaf."""
+    import torch
+    from repro_torch.core.nets import tree_leaves
+
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss = model.loss(params, batch, plain=plain)
+    grads = torch.autograd.grad(loss, leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def _ckpt_diff(a: str, b: str, step: int) -> tuple[int, int, list]:
+    """Checkpoint ``step`` under ``a`` and under ``b`` (the reference's
+    layout): the params leaves compared bitwise one at a time, every leaf
+    (the Adam moments too) by the CRC-32 of its bytes that the manifest
+    carries.  (params leaves, leaves, differing paths)."""
+    name = f"step_{step:010d}"
+    man = []
+    for root in (a, b):
+        with open(os.path.join(root, name, "manifest.json")) as f:
+            man.append(json.load(f))
+    paths = man[0]["paths"]
+    check(man[1]["paths"] == paths, "checkpoint trees differ")
+    crcs = [m["integrity"]["arrays"] for m in man]
+    bad = [p for i, p in enumerate(paths)
+           if crcs[0][f"leaf_{i:05d}"] != crcs[1][f"leaf_{i:05d}"]]
+    n_params = 0
+    with np.load(os.path.join(a, name, "arrays.npz")) as za, \
+            np.load(os.path.join(b, name, "arrays.npz")) as zb:
+        for i, path in enumerate(paths):
+            if not path.startswith("['params']"):
+                continue
+            key = f"leaf_{i:05d}"
+            n_params += 1
+            if not np.array_equal(za[key], zb[key]):
+                bad.append(path)
+    return n_params, len(paths), bad
+
+
+def _link_step(src: str, dst: str, step: int) -> None:
+    """``dst`` as a checkpoint root whose latest step is ``src``'s
+    ``step`` (hard links to its files)."""
+    name = f"step_{step:010d}"
+    os.makedirs(os.path.join(dst, name))
+    for f in os.listdir(os.path.join(src, name)):
+        os.link(os.path.join(src, name, f), os.path.join(dst, name, f))
+    with open(os.path.join(dst, "LATEST"), "w") as f:
+        f.write(name)
+
+
+def _steady_ms(step_s) -> float:
+    """Median ms of the steps after the first two (the first pays cuBLAS's
+    and the allocator's first-use costs)."""
+    tail = sorted(step_s[2:] or step_s)
+    return 1e3 * tail[len(tail) // 2]
+
+
+def _lm_trace(model, params, opt, batch, start, total, kname) -> dict:
+    """Three recipe steps under torch.profiler: device busy ms, idle share,
+    the K5 / K6 device kernels' ms and launch counts, the LM scopes'
+    device ms and the three losses."""
+    import torch
+    from repro_torch.launch import train
+
+    state, losses = [params, opt], []
+
+    def three():
+        for s in range(start, start + 3):
+            state[0], state[1], loss, _ = train.lm_train_step(
+                model, state[0], state[1], batch, s, 3e-4, total)
+            losses.append(loss)
+        losses[:] = [float(x) for x in losses]
+
+    kernels = {n: DEVICE_KERNELS[n] for n in DEVICE_KERNELS
+               if n.startswith(kname) and n != "flash_attention_f32"}
+    split = _device_split(three, kernels, LM_SCOPES)
+    split["idle_share"] = 1.0 - split["device_busy_ms"] / \
+        split["profiled_wall_ms"]
+    split["losses"] = losses
+    torch.cuda.synchronize()
+    return split, state[0], state[1]
+
+
+def _lm_kernel_times(dev) -> dict:
+    """K5 and K6 at the training shapes (llama3.2-1b's B = 4, S = 1024;
+    rwkv6-3b's B = 1, T = 1024): the kernel (CUDA graph), its plain
+    version, SDPA for K5, the training entry's VJP recompute, the bound."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import wkv6 as WK
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    out = {}
+    B, S, H, Hk, dh = 4, 1024, 32, 8, 64
+    q, k, v = _qkv(gen, B, S, S, H, Hk, dh, torch.bfloat16, False, dev)
+    do = torch.randn_like(q)
+
+    def vjp_fa():
+        ts = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = FA.flash_attention_train(*ts, causal=True)
+        torch.autograd.grad(o, ts, do)
+
+    bms, by, nbytes, flops = fa_bound(B, S, H, Hk, dh)
+    out["flash_attention"] = {
+        "shape": f"B={B} S=T={S} H={H} Hk={Hk} dh={dh} bf16 causal",
+        "ms": _graph_ms(lambda: FA.flash_attention(q, k, v, causal=True),
+                        20),
+        "plain_ms": _events_ms(lambda: FA.flash_attention_plain(
+            q, k, v, causal=True), 3),
+        "library_ms": _graph_ms(lambda: _sdpa(q, k, v), 20),
+        "train_fwd_bwd_ms": _events_ms(vjp_fa, 3),
+        "bound_ms": bms, "bound_by": by, "bytes": nbytes, "flops": flops}
+    del q, k, v, do
+    B, T, H, P = 1, 1024, 40, 64
+    r, k, v, w, u = _rkvwu(gen, B, T, H, P, "near1", dev)
+    dy = torch.randn_like(r)
+
+    def vjp_wkv():
+        ts = [t.detach().requires_grad_() for t in (r, k, v, w, u)]
+        y = WK.wkv6_train(*ts, chunk=256)
+        torch.autograd.grad(y, ts, dy)
+
+    bms, by, nbytes, flops = wkv_bound(B, T, H, P)
+    out["wkv6"] = {
+        "shape": f"B={B} T={T} H={H} P={P} float32",
+        "ms": _graph_ms(lambda: WK.wkv6(r, k, v, w, u), 20),
+        "plain_ms": _events_ms(lambda: WK.wkv6_plain(r, k, v, w, u,
+                                                     chunk=256), 3),
+        "plain_chunk": 256, "library_ms": None,
+        "train_fwd_bwd_ms": _events_ms(vjp_wkv, 3),
+        "bound_ms": bms, "bound_by": by, "bytes": nbytes, "flops": flops}
+    del r, k, v, w, u, dy
+    torch.cuda.empty_cache()
+    for name, row in out.items():
+        emit({"lm_train_timing": {"kernel": name, **row}})
+    return out
+
+
+def lm_train_phase(dev) -> dict:
+    """``launch.train lm`` on the card (the docstring's phase 13): returns
+    the K5/K6 wrapper launches of its main runs."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.nets import map_tree, tree_leaves
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.models import make_batch as make_lm_batch
+    from repro_torch.optim.adam import init_adam
+
+    smi = _smi()
+    launches = {}
+    res = {"card": smi}
+    tmp = tempfile.mkdtemp(prefix="lm-train-")
+    try:
+        # (a) + (f): the entry point, counted; (b) llama resumed bitwise
+        for name, cell in LM_TRAIN.items():
+            cfg = _lm_cfg(name)
+            argv = ["--arch", name, "--steps", str(cell["steps"]),
+                    "--batch", str(cell["batch"]), "--seq", str(cell["seq"]),
+                    "--log-every", "10"]
+            if cell["layers"]:
+                argv += ["--n-layers", str(cell["layers"])]
+            a_dir = os.path.join(tmp, f"{name}-a")
+            if cell["resume"]:
+                argv += ["--ckpt-every", str(LM_CKPT_EVERY)]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_lm_counts()
+            t0 = time.perf_counter()
+            run = _train_lm(argv + (["--ckpt-dir", a_dir] if cell["resume"]
+                                    else []))
+            secs = time.perf_counter() - t0
+            counts = _check_lm_counts(name, cfg.family, cell["steps"],
+                                      cfg.n_layers, cfg.remat)
+            for k, v in counts.items():
+                if k in ("flash_attention", "wkv6"):
+                    launches[k] = launches.get(k, 0) + v
+            losses = run["losses"]
+            check(len(losses) == cell["steps"] and
+                  all(np.isfinite(losses)), f"{name}: losses {losses}")
+            check(run["device"].startswith("cuda"), f"{name} on {run}")
+            row = {"arch": name, "layers": cfg.n_layers,
+                   "batch": cell["batch"], "seq": cell["seq"],
+                   "steps": cell["steps"], "seconds": secs,
+                   "first_loss": losses[0], "final_loss": losses[-1],
+                   "steady_ms_per_step": _steady_ms(run["step_s"]),
+                   "tokens_per_s": run["tokens_per_s"],
+                   "steady_tokens_per_s": cell["batch"] * cell["seq"] * 1e3
+                   / _steady_ms(run["step_s"]),
+                   "max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 1e9,
+                   "steps_s": sum(run["step_s"]), "launches": counts}
+            if cell["resume"]:
+                b_dir = os.path.join(tmp, f"{name}-b")
+                _link_step(a_dir, b_dir, LM_CKPT_EVERY)
+                _reset_lm_counts()
+                t0 = time.perf_counter()
+                again = _train_lm(argv + ["--ckpt-dir", b_dir, "--resume"])
+                row["resume_seconds"] = time.perf_counter() - t0
+                rest = cell["steps"] - LM_CKPT_EVERY
+                _check_lm_counts(name, cfg.family, rest, cfg.n_layers,
+                                 cfg.remat)
+                check(again["start"] == LM_CKPT_EVERY and
+                      again["losses"] == losses[LM_CKPT_EVERY:],
+                      f"{name}: resumed losses {again['losses']} != "
+                      f"{losses[LM_CKPT_EVERY:]}")
+                t0 = time.perf_counter()
+                n_params, n_leaves, bad = _ckpt_diff(a_dir, b_dir,
+                                                     cell["steps"])
+                check(not bad, f"{name}: resumed checkpoint differs in "
+                               f"{bad[:5]}")
+                row["resume"] = {"from": LM_CKPT_EVERY, "losses_equal": True,
+                                 "params_leaves_bitwise_equal": n_params,
+                                 "leaves_crc32_equal": n_leaves,
+                                 "compare_s": time.perf_counter() - t0,
+                                 "steps_s": sum(again["step_s"])}
+                shutil.rmtree(b_dir, ignore_errors=True)
+            shutil.rmtree(a_dir, ignore_errors=True)
+            emit({"lm_train": row})
+            res[name] = row
+
+        # (c) kernel path against plain path, one loss and its gradient
+        t_part = time.perf_counter()
+        for name in LM_TRAIN:
+            cfg = _lm_cfg(name)
+            params = build_model(cfg, dev).init(SEED + 1)
+            shape = ShapeConfig("c", 1024, 1, "train")
+            batch = make_lm_batch(cfg, shape, "train", seed=SEED + 7,
+                                  device=dev)
+            row = {"arch": name, "layers": cfg.n_layers, "batch": 1,
+                   "seq": 1024}
+            for dtype in ("float32", "bfloat16"):
+                model = build_model(dataclasses.replace(cfg, dtype=dtype),
+                                    dev)
+                kname = "flash_attention" if cfg.family == "dense" \
+                    else "wkv6"
+                _reset_lm_counts()
+                lk, gk = _lm_grads(model, params, batch, False)
+                kern = _lm_counts()
+                lp, gp = _lm_grads(model, params, batch, True)
+                after = _lm_counts()
+                fwd = cfg.n_layers * (1 + int(cfg.remat))
+                # the plain path adds plain calls, no kernel launch
+                check(kern[kname] == fwd and after[kname] == fwd,
+                      f"{name} {dtype}: kernel path {kern}, then {after}")
+                rel = abs(float(lk) - float(lp)) / abs(float(lp))
+                gerr = max(_leaf_err(a.float(), b.float())
+                           for a, b in zip(gk, gp))
+                check(np.isfinite(float(lk)), f"{name} {dtype}: loss {lk}")
+                if dtype == "float32":
+                    check(rel <= LM_LOSS_RTOL, f"{name}: kernel loss vs "
+                                               f"plain {rel:.3e}")
+                    check(gerr <= LM_GRAD_TOL, f"{name}: kernel grads vs "
+                                               f"plain {gerr:.3e}")
+                row[dtype] = {"loss": float(lk), "loss_rel": rel,
+                              "grad_err": gerr}
+                del gk, gp
+            row["tol"] = {"loss_rel": LM_LOSS_RTOL, "grad": LM_GRAD_TOL}
+            row["seconds"] = time.perf_counter() - t_part
+            t_part = time.perf_counter()
+            emit({"lm_train_vs_plain": row})
+            del params
+            torch.cuda.empty_cache()
+
+        # (d) card against CPU, the recipe from one set of params
+        for name in LM_TRAIN:
+            cfg = dataclasses.replace(_lm_cfg(name).reduced(),
+                                      dtype="float32")
+            p0 = build_model(cfg, "cpu").init(SEED + 2)
+            shape = ShapeConfig("d", 64, 2, "train")
+            runs = {}
+            for device in ("cpu", dev):
+                model = build_model(cfg, device)
+                params = map_tree(lambda t: t.to(device), p0)
+                opt = init_adam(params)
+                losses = []
+                for s in range(5):
+                    batch = make_lm_batch(cfg, shape, "train",
+                                          seed=SEED * 100003 + s,
+                                          device=device)
+                    params, opt, loss, _ = train.lm_train_step(
+                        model, params, opt, batch, s, 3e-4, 5)
+                    losses.append(float(loss))
+                runs[device] = (losses, params)
+            (lc, pc), (lg, pg) = runs["cpu"], runs[dev]
+            lerr = max(abs(a - b) / max(1.0, abs(a)) for a, b in zip(lc, lg))
+            perr = max(float((b.cpu() - a).abs().max()) for a, b in
+                       zip(tree_leaves(pc), tree_leaves(pg)))
+            check(lerr <= LM_CPU_TOL and perr <= LM_CPU_TOL,
+                  f"{name}: card vs CPU losses {lerr:.3e}, params "
+                  f"{perr:.3e}")
+            emit({"lm_train_card_vs_cpu": {
+                "arch": name, "reduced": True, "steps": 5, "loss_err": lerr,
+                "param_err": perr, "tol": LM_CPU_TOL,
+                "seconds": time.perf_counter() - t_part}})
+            t_part = time.perf_counter()
+
+        # (e) learning on one repeated batch, then (g) a trace of three
+        # steps; (g) for rwkv6-3b on a fresh init
+        for name, cell in LM_TRAIN.items():
+            cfg = _lm_cfg(name)
+            kname = "flash_attention" if cfg.family == "dense" else "wkv6"
+            model = build_model(cfg, dev)
+            params = model.init(SEED + 3)
+            opt = init_adam(params)
+            shape = ShapeConfig("e", cell["seq"], cell["batch"], "train")
+            batch = make_lm_batch(cfg, shape, "train", seed=SEED + 8,
+                                  device=dev)
+            total = LM_LEARN_STEPS if cell["resume"] else 4
+            losses = []
+            for s in range(total - 3):
+                params, opt, loss, _ = train.lm_train_step(
+                    model, params, opt, batch, s, 3e-4, total)
+                losses.append(float(loss))
+            _reset_lm_counts()
+            split, params, opt = _lm_trace(model, params, opt, batch,
+                                           total - 3, total, kname)
+            traced = _lm_counts()
+            losses += split["losses"]
+            dev_kernel = "flash_attention_sm90" if kname == \
+                "flash_attention" else "wkv6_chunk"
+            want = 3 * cfg.n_layers * (1 + int(cfg.remat))
+            check(split["kernel_count"][dev_kernel] == want ==
+                  traced[dev_kernel],
+                  f"{name}: traced {split['kernel_count']}, counted "
+                  f"{traced}, want {want} {dev_kernel}")
+            row = {"arch": name, "trace_steps": 3, "profile": split,
+                   "seconds": time.perf_counter() - t_part,
+                   "remat_factor_traced":
+                   split["kernel_count"][dev_kernel] / (3 * cfg.n_layers)}
+            if cell["resume"]:
+                row["learn"] = {"steps": total, "first_loss": losses[0],
+                                "final_loss": losses[-1],
+                                "bar": LM_LEARN * losses[0],
+                                "losses": losses}
+                check(len(losses) == total and
+                      losses[-1] <= LM_LEARN * losses[0],
+                      f"{name}: loss {losses[0]} -> {losses[-1]} on one "
+                      "batch")
+            emit({"lm_train_trace": row})
+            res[name]["trace"] = row
+            del params, opt, model
+            torch.cuda.empty_cache()
+            t_part = time.perf_counter()
+        res["kernel_times"] = _lm_kernel_times(dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["launches"] = launches
+    return res
+
+
 def _smi() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -2353,7 +2829,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write every phase's numbers to this JSON")
     ap.add_argument("--only", default=None,
-                    choices=("distributed", "scenarios"),
+                    choices=("distributed", "scenarios", "lm_train"),
                     help="only the build and this phase (no result line)")
     ap.add_argument("--ab", default=None, metavar="DIR",
                     help="only time this checkout's K3/K4 against the "
@@ -2391,7 +2867,8 @@ def main(argv=None) -> int:
     if args.only:
         phase("build", build_phase)
         phase(args.only, {"distributed": distributed_phase,
-                          "scenarios": scenarios_phase}[args.only], dev)
+                          "scenarios": scenarios_phase,
+                          "lm_train": lm_train_phase}[args.only], dev)
         print(_smi())
         return 0
     phase("build", build_phase)
@@ -2420,6 +2897,9 @@ def main(argv=None) -> int:
     times.update(phase("lm timing", lm_timing, dev))
     launches.update(phase("llm", llm_phase, dev))
     phase("llm serve", llm_serve_phase, dev)
+    lm_train = phase("lm train", lm_train_phase, dev)
+    for k, v in lm_train["launches"].items():
+        launches[k] = launches.get(k, 0) + v
 
     kernels = []
     shapes = {"pinn_mlp_fwd1": MAIN, "pinn_mlp_fwd2": MAIN,
@@ -2437,6 +2917,11 @@ def main(argv=None) -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
             "shape": t["shape"]})
+        if name in lm_train["kernel_times"]:   # at the training shapes
+            kernels[-1]["train_shape"] = {
+                k: v for k, v in lm_train["kernel_times"][name].items()
+                if k not in ("bytes", "flops")}
+            kernels[-1]["lm_train_launches"] = lm_train["launches"][name]
     smi = _smi()
     if args.out:
         with open(args.out, "w") as f:

@@ -16,7 +16,15 @@ headers say what bounds them and how they are tiled.  This module holds
   :func:`attention_blocks` at query offset 0 and no cache lengths;
 * :func:`flash_attention` — the wrapper: a CPU tensor goes to the plain
   version; a CUDA tensor launches the kernel or raises — there is no
-  fallback;
+  fallback.  It is forward-only (prefill) and refuses inputs that need a
+  gradient;
+* :func:`flash_attention_train` — the training entry, a
+  ``torch.autograd.Function``: its forward is the wrapper (K5 on CUDA
+  tensors, the plain version on CPU ones), its backward recomputes
+  :func:`attention_blocks` with grad enabled and returns its VJP.  The
+  reference has no backward kernel either: it differentiates its XLA
+  attention.  Each recompute counts in ``recomputes`` (not in
+  ``plain_calls``, which stays 0 on a card);
 * ``launches``: ``flash_attention`` counts the wrapper's launches,
   ``flash_attention_sm90`` / ``flash_attention_f32`` those of each device
   kernel; ``producers`` counts the bf16 kernel's launches by how its tiles
@@ -61,10 +69,11 @@ launches = {"flash_attention": 0, "flash_attention_sm90": 0,
             "flash_attention_f32": 0}
 producers = {"tma": 0, "loads": 0}
 plain_calls = {"flash_attention_plain": 0}
+recomputes = {"flash_attention_vjp": 0}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launches, producers, plain_calls):
+    for counts in (launches, producers, plain_calls, recomputes):
         for name in counts:
             counts[name] = 0
 
@@ -126,6 +135,38 @@ def flash_attention(q, k, v, *, causal=True, block_q=512):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, block_q=block_q)
     return _launch(q, k, v, causal)
+
+
+# ----------------------------------------------------------------- training
+
+class _FlashAttentionTrain(torch.autograd.Function):
+    """K5 forward, autograd through the plain version in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.block_q = causal, block_q
+        return flash_attention(q, k, v, causal=causal, block_q=block_q)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        recomputes["flash_attention_vjp"] += 1
+        with torch.profiler.record_function("flash_attention_vjp"), \
+                torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = attention_blocks(*leaves, causal=ctx.causal,
+                                 block_q=ctx.block_q)
+            dq, dk, dv = torch.autograd.grad(o, leaves, do)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_train(q, k, v, *, causal=True, block_q=512):
+    """:func:`flash_attention` with a backward: K5 (or, on CPU tensors,
+    the plain version) computes the output; the gradient is the plain
+    version's, recomputed from the saved q, k, v (``block_q`` bounds its
+    scores' memory)."""
+    return _FlashAttentionTrain.apply(q, k, v, causal, block_q)
 
 
 # ------------------------------------------------------------------- launch

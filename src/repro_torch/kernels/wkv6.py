@@ -14,7 +14,14 @@ out).  This module holds
 * :func:`wkv6_plain` — the plain version of K6: :func:`wkv6_chunked` from a
   zero state, final state dropped;
 * :func:`wkv6` — the wrapper: a CPU tensor goes to the plain version; a
-  CUDA tensor launches the kernel or raises — there is no fallback;
+  CUDA tensor launches the kernel or raises — there is no fallback.  It is
+  forward-only (prefill) and refuses inputs that need a gradient;
+* :func:`wkv6_train` — the training entry, a ``torch.autograd.Function``:
+  its forward is the wrapper (K6 on CUDA tensors, the plain version on CPU
+  ones), its backward recomputes :func:`wkv6_chunked` with grad enabled
+  and returns its VJP (the reference differentiates its XLA
+  ``_wkv6_chunked`` too; it has no backward kernel).  Each recompute
+  counts in ``recomputes`` (not in ``plain_calls``);
 * ``launches``: ``wkv6`` counts the wrapper's launches, ``wkv6_chunk``,
   ``wkv6_scan`` and ``wkv6_out`` those of each device kernel (one each per
   call);
@@ -37,10 +44,11 @@ P_MAX = 128   # widest head the kernels take
 
 launches = {"wkv6": 0, "wkv6_chunk": 0, "wkv6_scan": 0, "wkv6_out": 0}
 plain_calls = {"wkv6_plain": 0}
+recomputes = {"wkv6_vjp": 0}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launches, plain_calls):
+    for counts in (launches, plain_calls, recomputes):
         for name in counts:
             counts[name] = 0
 
@@ -111,6 +119,40 @@ def wkv6(r, k, v, w, u, *, chunk=64):
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, chunk=chunk)
     return _launch(r, k, v, w, u)
+
+
+# ----------------------------------------------------------------- training
+
+class _Wkv6Train(torch.autograd.Function):
+    """K6 forward, autograd through the chunked plain version in the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, chunk):
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.chunk = chunk
+        return wkv6(r, k, v, w, u, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        recomputes["wkv6_vjp"] += 1
+        with torch.profiler.record_function("wkv6_vjp"), torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in saved]
+            r = leaves[0]
+            B, T, H, P = r.shape
+            y, _ = wkv6_chunked(*leaves, r.new_zeros((B, H, P, P)),
+                                max(1, min(ctx.chunk, T)))
+            grads = torch.autograd.grad(y, leaves, dy)
+        return (*grads, None)
+
+
+def wkv6_train(r, k, v, w, u, *, chunk=64):
+    """:func:`wkv6` with a backward: K6 (or, on CPU tensors, the plain
+    version) computes y; the gradient of r, k, v, w and u is the chunked
+    plain version's (``min(chunk, T)`` steps per chunk, so T must be a
+    multiple of it), recomputed from the saved inputs."""
+    return _Wkv6Train.apply(r, k, v, w, u, chunk)
 
 
 # ------------------------------------------------------------------- launch

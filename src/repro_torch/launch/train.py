@@ -1,4 +1,5 @@
-"""Training launcher: the paper's PINN experiments (``pinn``).
+"""Training launcher: the paper's PINN experiments (``pinn``) and the LM
+architectures (``lm``).
 
 Counterpart of the reference package's ``launch/train.py``::
 
@@ -6,6 +7,9 @@ Counterpart of the reference package's ``launch/train.py``::
         --method xpinn --nx 4 --nt 2 --steps 2000 --ckpt-dir /tmp/run --resume
     PYTHONPATH=src python -m repro_torch.launch.train pinn --distributed \\
         --nx 2 --nt 2 --steps 20 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train lm --arch llama3.2-1b \\
+        --reduced --steps 50 --batch 4 --seq 256 --ckpt-dir /tmp/lm --resume \\
+        [--device cpu]
 
 ``pinn`` trains any PDE of the registry: ``heat2d_inverse`` on the US-map
 decomposition with two nets (u and the conductivity k), the others on a
@@ -22,14 +26,28 @@ prints the backend, the ranks and each rank's device.  Unlike the
 reference, it never falls back to the single-process trainer.  The
 residual path is the reference's ``DDConfig`` default (``jvp``).
 
-It runs on the CUDA card unless ``--device cpu`` is given.  The last line
-is one JSON object: the final summed loss, the rel-L2 error, the steps and
-the trainer.  ``lm`` is not ported yet (``CausalLM.loss`` is missing):
-it raises ``NotImplementedError``.
+``lm`` trains a ported family (dense, rwkv) on the synthetic token
+pipeline with the reference's recipe: each step a fresh batch
+(``make_batch(..., seed=seed * 100003 + step)``), ``CausalLM.loss`` and its
+gradient (per-layer remat, the chunked fused head cross-entropy; on the
+card K5 or K6 in every layer's forward), the global norm clipped to 1.0,
+``warmup_cosine(warmup=20)`` and Adam.  ``--reduced`` and ``--preset
+100m`` are the reference's configs; ``--n-layers`` cuts the depth (the
+card holds seven float32 copies of the params at the step's peak).  It
+checkpoints ``{"params", "opt"}`` with ``{"step", "arch"}`` every
+``--ckpt-every`` steps in the reference's layout (either package resumes
+the other's) and resumes with ``--resume``; a resumed run repeats the
+uninterrupted one bit for bit on one device.
+
+Both run on the CUDA card unless ``--device cpu`` is given.  The last
+line is one JSON object: for ``pinn`` the final summed loss, the rel-L2
+error, the steps and the trainer; for ``lm`` (key ``train_lm``) the arch,
+the device, the steps, the losses and tokens per second.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import tempfile
@@ -44,11 +62,17 @@ from repro_torch.core import (CartesianDecomposition, DDConfig,
                               ReferenceTrainer, TrainState, build_topology,
                               evaluate_l2, us_map_decomposition)
 from repro_torch.core.losses import METHODS
-from repro_torch.core.nets import MLPConfig, SubdomainModelConfig, map_tree
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.nets import (MLPConfig, SubdomainModelConfig, map_tree,
+                                   tree_leaves, tree_unflatten)
 from repro_torch.core.pdes import REGISTRY as PDE_REGISTRY
 from repro_torch.core.trainer import _fit_count
 from repro_torch.data import make_batch
 from repro_torch.device import resolve_device
+from repro_torch.models import build_model
+from repro_torch.models import make_batch as make_lm_batch
+from repro_torch.optim import adam as adam_lib
 
 
 # ------------------------------------------------------------------------ PINN
@@ -195,10 +219,85 @@ def run_pinn(args) -> dict:
 
 # -------------------------------------------------------------------------- LM
 
+def lm_config(args):
+    """The model config of the ``lm`` flags: the arch, ``--reduced``,
+    ``--preset 100m`` (the reference's replace) and ``--n-layers``."""
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.preset == "100m":
+        cfg = dataclasses.replace(
+            cfg.reduced(), n_layers=8, d_model=768, n_heads=12, n_kv_heads=4,
+            head_dim=64, d_ff=2048, vocab=32000, remat=False)
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    return cfg
+
+
+def lm_train_step(model, params, opt, batch, step: int, peak_lr: float,
+                  total: int):
+    """One step of the reference's recipe: loss and gradient, the global
+    norm clipped to 1.0, ``warmup_cosine(step, peak_lr, warmup=20,
+    total)``, Adam.  Returns (params, opt, loss, grad norm)."""
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    grads, gn = adam_lib.clip_by_global_norm(
+        tree_unflatten(params, list(grads)), 1.0)
+    lr = adam_lib.warmup_cosine(torch.tensor(step, device=loss.device),
+                                peak_lr, warmup=20, total=total)
+    with torch.profiler.record_function("adam_update"):
+        params, opt = adam_lib.adam_update(grads, opt, params, lr)
+    return params, opt, loss.detach(), gn
+
+
 def run_lm(args) -> dict:
-    raise NotImplementedError(
-        "train lm: CausalLM.loss and fused_head_cross_entropy are not "
-        "ported yet (ROADMAP Queue 1 item 9)")
+    dev = resolve_device(args.device)
+    cfg = lm_config(args)
+    model = build_model(cfg, dev)
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    params = model.init(args.seed)
+    opt = adam_lib.init_adam(params)
+
+    start = 0
+    if args.resume and args.ckpt_dir and \
+            ckpt.latest_step(args.ckpt_dir) is not None:
+        tree, meta = ckpt.restore(args.ckpt_dir,
+                                  {"params": params, "opt": opt})
+        tree = map_tree(lambda a: torch.as_tensor(np.asarray(a), device=dev),
+                        tree)
+        params, opt = tree["params"], tree["opt"]
+        start = int(meta["step"])
+        print(f"[train] resumed from step {start}", flush=True)
+
+    losses, step_s = [], []
+    for s in range(start, args.steps):
+        t0 = time.perf_counter()
+        batch = make_lm_batch(cfg, shape, "train",
+                              seed=args.seed * 100003 + s, device=dev)
+        params, opt, loss, gn = lm_train_step(model, params, opt, batch, s,
+                                              args.lr, args.steps)
+        losses.append(float(loss))   # waits for the step's device work
+        step_s.append(time.perf_counter() - t0)
+        if (s + 1) % args.log_every == 0:
+            print(f"[train] step {s + 1}/{args.steps} loss={losses[-1]:.4f} "
+                  f"gnorm={float(gn):.3f} ({len(step_s) / sum(step_s):.2f} "
+                  "it/s)", flush=True)
+        if args.ckpt_dir and (s + 1) % args.ckpt_every == 0:
+            ckpt.save(args.ckpt_dir, s + 1, {"params": params, "opt": opt},
+                      {"step": s + 1, "arch": args.arch})
+    tokens = args.batch * args.seq * len(step_s)
+    return {"arch": args.arch, "device": str(dev), "steps": args.steps,
+            "start": start, "layers": cfg.n_layers,
+            "final_loss": losses[-1] if losses else None, "losses": losses,
+            "step_s": step_s,
+            "tokens_per_s": tokens / sum(step_s) if step_s else None}
 
 
 def main(argv=None) -> int:
@@ -232,7 +331,7 @@ def main(argv=None) -> int:
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "versions of the kernels)")
 
-    lp = sub.add_parser("lm")   # the reference's flags; not ported yet
+    lp = sub.add_parser("lm")
     lp.add_argument("--arch", default="llama3.2-1b")
     lp.add_argument("--reduced", action="store_true")
     lp.add_argument("--preset", default=None, choices=[None, "100m"])
@@ -245,10 +344,16 @@ def main(argv=None) -> int:
     lp.add_argument("--ckpt-every", type=int, default=25)
     lp.add_argument("--log-every", type=int, default=10)
     lp.add_argument("--resume", action="store_true")
+    lp.add_argument("--n-layers", type=int, default=None,
+                    help="cut the config's depth to this many layers")
+    lp.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the plain "
+                         "versions of the kernels)")
 
     args = ap.parse_args(argv)
     if args.mode == "lm":
-        run_lm(args)
+        print(json.dumps({"train_lm": run_lm(args)}))
+        return 0
     out = run_pinn(args)
     print(json.dumps({"train": out}))
     return 0

@@ -3,17 +3,22 @@
 Counterpart of the reference package's ``models/causal_lm.py``.  A family
 registers a :class:`BlockDef` (per-layer init / apply / cache init).  The
 assembly provides the embedding, the loop over the stacked layers, the final
-norm and the LM head, and two entry points: ``prefill`` (the full causal
-forward; on a card every attention layer launches the flash-attention kernel
-and every RWKV time-mix layer the WKV6 kernel) and ``decode_step`` (one token
-against a cache, plain torch on every device, as in the reference, where no
-Pallas kernel serves decode).
+norm and the LM head, and three entry points: ``loss`` (the teacher-forced
+next-token loss for training: the layers under per-layer remat with
+``cfg.remat`` / ``cfg.remat_policy``, then the chunked fused head
+cross-entropy; on a card every attention layer's forward launches the
+flash-attention kernel and every RWKV time-mix layer's the WKV6 kernel,
+their backward being the plain versions' VJP), ``prefill`` (the full causal
+forward through the same kernels) and ``decode_step`` (one token against a
+cache, plain torch on every device, as in the reference, where no Pallas
+kernel serves decode).
 
 The model lives on one device, ``cuda`` unless the caller asks for the CPU
 (``build_model(cfg, device="cpu")``); its params and caches are made there.
-Not ported yet (ROADMAP Queue 1): ``loss`` with the fused head
-cross-entropy, the ``logical`` / ``*_specs`` sharding trees, the deepseek
-``prelude`` of dense layers and the VLM patch frontend.
+Not ported yet (ROADMAP Queue 1): the ``logical`` / ``*_specs`` sharding
+trees, the deepseek ``prelude`` of dense layers, the VLM patch frontend,
+and with them the parts of ``loss`` that only those families reach (the
+MoE load-balance term ``ys["aux"]`` and the VLM's patch slice).
 """
 from __future__ import annotations
 
@@ -93,7 +98,10 @@ class CausalLM:
 
     # ----------------------------------------------------------------- forward
     def _hidden(self, params, batch, cache=None, pos=None, plain=False):
-        """Backbone up to (and including) the final norm. Returns (x, new_cache)."""
+        """Backbone up to (and including) the final norm. Returns (x, new_cache).
+
+        The layers run under ``cfg.remat`` / ``cfg.remat_policy`` as in the
+        reference; remat acts only where grad is enabled (``loss``)."""
         cfg = self.cfg
         dtype = _dtype(cfg)
         x = L.embed(params["embed"], batch["tokens"], dtype)
@@ -109,7 +117,9 @@ class CausalLM:
         def block_fn(lp, h, lc):
             return self.block.apply(cfg, lp, h, lc, ctx)
 
-        x, new_cache = L.scan_layers(block_fn, params["layers"], x, cache)
+        x, new_cache = L.scan_layers(block_fn, params["layers"], x, cache,
+                                     remat=cfg.remat,
+                                     policy=cfg.remat_policy)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x, new_cache
 
@@ -131,7 +141,27 @@ class CausalLM:
             logits = L.lm_head(params["head"], x, nv)
         return logits, nc
 
+    def _head_weight(self, params):
+        if self.cfg.tie_embeddings:
+            return params["embed"]["table"], True
+        return params["head"]["w"], False
+
     # ------------------------------------------------------------ entry points
+    def loss(self, params, batch, *, plain=False):
+        """Teacher-forced next-token loss via the CHUNKED fused head + CE
+        (the full float32 logits are never materialized).  batch: tokens and
+        labels (B, S), optionally ``loss_mask``.  Differentiable in
+        ``params``; ``plain=True`` as in :meth:`forward`.
+
+        The reference also slices off the VLM's patch positions and adds
+        the MoE load-balance term; those families are not ported yet."""
+        cfg = self.cfg
+        x, _ = self._hidden(params, batch, plain=plain)
+        w, tied = self._head_weight(params)
+        return L.fused_head_cross_entropy(
+            x, w, batch["labels"], batch.get("loss_mask"), transpose_w=tied,
+            n_valid=cfg.vocab if cfg.padded_vocab != cfg.vocab else None)
+
     @torch.no_grad()
     def prefill(self, params, batch, *, plain=False):
         logits, _ = self.forward(params, batch, plain=plain)

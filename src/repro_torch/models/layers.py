@@ -6,8 +6,9 @@ conventions:
 * Params are nested dicts of float32 tensors (master weights); compute is
   ``cfg.dtype`` (bf16), cast at use.  Layer stacks are STACKED on a leading
   L axis; :func:`scan_layers` walks it in a Python loop over views (the
-  reference's ``lax.scan``; there is no remat, the port does not train the
-  LLMs yet).
+  reference's ``lax.scan``), each layer under a non-reentrant
+  ``torch.utils.checkpoint`` with ``remat`` (the reference's
+  ``jax.checkpoint``).
 * Initializers draw from a ``torch.Generator`` on the device the tensors are
   made on; they give other numbers than ``jax.random`` from the same seed,
   so tests carry the reference's params across (``api.params_from_numpy``).
@@ -16,11 +17,21 @@ conventions:
   tensors :func:`chunked_attention` launches it; every other call (decode
   against a cache) and every CPU call runs the plain blocked attention
   (``kernels.flash_attention.attention_blocks``).  The choice follows the
-  arguments and the tensors' device, never a failure.
+  arguments and the tensors' device, never a failure.  Where grad is
+  enabled and q, k or v needs it, the full causal forward goes through the
+  kernel's training entry (``flash_attention_train``: K5 forward, the plain
+  version's VJP by recompute in the backward).
+* Loss: :func:`fused_head_cross_entropy` chunks the head product and the
+  cross-entropy over the sequence, each chunk a ``torch.autograd.Function``
+  that saves only its inputs and recomputes its logits in the backward
+  (the reference's ``jax.checkpoint`` per chunk), so the float32 (B, S, V)
+  logits never exist.
 
 ``constrain`` (GSPMD sharding hints) has no counterpart: one card.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -100,16 +111,29 @@ def chunked_attention(q, k, v, *, causal=True, q_offset=0, block_q=512,
     kv_len: optional (B,) valid cache lengths (decode); None -> all T valid.
 
     ``causal`` with ``q_offset == 0`` and no ``kv_len`` is K5's function: on
-    CUDA tensors the kernel runs it (its own tiles, its own causal skip);
-    ``plain=True`` takes the kernel's plain version there instead, by name.
+    CUDA tensors the kernel runs it (its own tiles, its own causal skip),
+    through its training entry where grad is enabled and an input needs
+    it; ``plain=True`` takes the kernel's plain version (differentiable by
+    autograd) there instead, by name.
     The reference's ``causal_skip`` (an XLA-only FLOP saving with the same
     values) has no counterpart: the kernel skips above the diagonal anyway.
     """
     if causal and q_offset == 0 and kv_len is None:
-        fn = FA.flash_attention_plain if plain else FA.flash_attention
+        if plain:
+            fn = FA.flash_attention_plain
+        elif needs_grad(q, k, v):
+            fn = FA.flash_attention_train
+        else:
+            fn = FA.flash_attention
         return fn(q, k, v, causal=True, block_q=block_q)
     return FA.attention_blocks(q, k, v, causal=causal, q_offset=q_offset,
                                kv_len=kv_len, block_q=block_q)
+
+
+def needs_grad(*ts) -> bool:
+    """Grad is enabled and one of ``ts`` needs it: take a kernel's
+    training entry."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def decode_attention(q, k, v, pos):
@@ -233,18 +257,136 @@ def lm_head(p, x, n_valid=None):
     return _mask_padded_vocab(x @ p["w"].to(x.dtype), n_valid)
 
 
+# ------------------------------------------------------------------------ loss
+
+def _token_nll(logits, labels):
+    """Per-token NLL: log-sum-exp of the logits less the label's logit."""
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse - torch.gather(logits, -1, labels[..., None])[..., 0]
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token NLL; logits float32 for stability."""
+    nll = _token_nll(logits.float(), labels)
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
+
+
+class _ChunkNLL(torch.autograd.Function):
+    """Summed masked NLL of one sequence chunk through the head; saves its
+    inputs only and recomputes the chunk's logits in the backward."""
+
+    @staticmethod
+    def _nll(xi, wt, li, mi, transpose_w, n_valid):
+        logits = (xi @ wt.T) if transpose_w else (xi @ wt)
+        logits = _mask_padded_vocab(logits.float(), n_valid)
+        return torch.sum(_token_nll(logits, li) * mi)
+
+    @staticmethod
+    def forward(ctx, xi, wt, li, mi, transpose_w, n_valid):
+        ctx.save_for_backward(xi, wt, li, mi)
+        ctx.args = (transpose_w, n_valid)
+        with torch.profiler.record_function("fused_head_ce"):
+            return _ChunkNLL._nll(xi, wt, li, mi, transpose_w, n_valid)
+
+    @staticmethod
+    def backward(ctx, g):
+        xi, wt, li, mi = ctx.saved_tensors
+        with torch.profiler.record_function("fused_head_ce"), \
+                torch.enable_grad():
+            xd, wd = xi.detach().requires_grad_(), wt.detach().requires_grad_()
+            nll = _ChunkNLL._nll(xd, wd, li, mi, *ctx.args)
+            dx, dw = torch.autograd.grad(nll, (xd, wd), g)
+        return dx, dw, None, None, None, None
+
+
+def fused_head_cross_entropy(x, w, labels, mask=None, chunk=512,
+                             transpose_w=False, n_valid=None):
+    """LM head + softmax cross-entropy, CHUNKED over the sequence so the
+    float32 (B, S, V) logits are never materialized: each chunk's product
+    and CE is recomputed in the backward, one chunk at a time.
+
+    x: (B, S, D); w: (D, V) head weight (or the (V, D) tied table with
+    ``transpose_w``).  Ragged S is padded (mask 0); columns at or past
+    ``n_valid`` are masked.  Returns the mean NLL over ``mask``."""
+    B, S, D = x.shape
+    ck = min(chunk, S)
+    n_chunks = (S + ck - 1) // ck
+    pad = n_chunks * ck - S
+    mask = x.new_ones((B, S), dtype=torch.float32) if mask is None \
+        else mask.float()
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    # one cast of the head for all chunks (the reference casts inside
+    # each; the values are the same)
+    wt = w.to(x.dtype)
+    total = x.new_zeros((), dtype=torch.float32)
+    for i in range(n_chunks):
+        sl = slice(i * ck, (i + 1) * ck)
+        total = total + _ChunkNLL.apply(x[:, sl], wt, labels[:, sl],
+                                        mask[:, sl], transpose_w, n_valid)
+    return total / torch.clamp(mask.sum(), min=1.0)
+
+
 # -------------------------------------------------------------- layer-stack scan
 
-def scan_layers(block_fn, stacked_params, x, cache=None):
+# the products whose outputs remat policy "dots" keeps (the reference's
+# dots_with_no_batch_dims_saveable, as aten ops)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.bmm.default})
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(block_fn, policy):
+    """``block_fn`` under a non-reentrant checkpoint: ``"full"`` keeps
+    only its inputs, ``"dots"`` also the outputs of its matrix products.
+    The blocks draw no random numbers, so no RNG state is stashed."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    if policy in (None, "full"):
+        ctx_fn = None
+    elif policy == "dots":
+        ctx_fn = functools.partial(create_selective_checkpoint_contexts,
+                                   _keep_dots)
+    else:
+        raise ValueError(f"remat policy {policy!r}: 'full' or 'dots'")
+
+    def fn(lp, h, lc):
+        kw = {} if ctx_fn is None else {"context_fn": ctx_fn}
+        return checkpoint(block_fn, lp, h, lc, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return fn
+
+
+def scan_layers(block_fn, stacked_params, x, cache=None, remat=False,
+                policy="full"):
     """Run x through L stacked layers; threads per-layer cache through.
 
     block_fn(layer_params, x, layer_cache) -> (x, new_layer_cache).  Layer l
     gets views ``[l]`` of the stacked params (and cache); the new per-layer
-    caches are stacked again (None when the blocks return none)."""
+    caches are stacked again (None when the blocks return none).
+
+    ``remat`` re-materializes each layer in the backward (where grad is
+    enabled): ``policy="full"`` keeps only the per-layer carries,
+    ``"dots"`` also the products' outputs (``aten.mm`` / ``addmm`` /
+    ``bmm``), trading memory for recompute."""
+    fn = _remat(block_fn, policy) if remat and torch.is_grad_enabled() \
+        else block_fn
     n_layers = tree_leaves(stacked_params)[0].shape[0]
     new = []
     for l in range(n_layers):
         lc = None if cache is None else map_tree(lambda t: t[l], cache)
-        x, nc = block_fn(map_tree(lambda t: t[l], stacked_params), x, lc)
+        x, nc = fn(map_tree(lambda t: t[l], stacked_params), x, lc)
         new.append(nc)
     return x, (None if new[0] is None else stack_trees(new))

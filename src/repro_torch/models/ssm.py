@@ -12,8 +12,12 @@ the kernel runs it, on CPU tensors its plain version, the reference's
 chunked form (``kernels.wkv6.wkv6_chunked``, the reference's
 ``_wkv6_chunked``, with ``min(ssm_chunk, T)`` steps per chunk — so, as in
 the reference, T must then be a multiple of ``ssm_chunk`` when it exceeds
-it).  Decode is the O(1) recurrent state update
-(``_wkv6_step``) in plain torch, as in the reference.
+it).  Where grad is enabled and an input needs it (``CausalLM.loss``), the
+full forward goes through the kernel's training entry (``wkv6_train``: K6
+forward, the chunked plain version's VJP by recompute in the backward);
+``plain=True`` takes the plain version, differentiable by autograd.
+Decode is the O(1) recurrent state update (``_wkv6_step``) in plain
+torch, as in the reference.
 """
 from __future__ import annotations
 
@@ -96,7 +100,12 @@ def rwkv6_apply(cfg: ModelConfig, lp, x, lc, ctx):
     u4 = tm["u_bonus"].float().reshape(H, P)
 
     if not decode:
-        wkv = WK.wkv6_plain if ctx["plain"] else WK.wkv6
+        if ctx["plain"]:
+            wkv = WK.wkv6_plain
+        elif L.needs_grad(r4, k4, v4, w4, u4):
+            wkv = WK.wkv6_train
+        else:
+            wkv = WK.wkv6
         y = wkv(r4, k4, v4, w4, u4, chunk=min(cfg.ssm_chunk, T))
         new_cache = None
     else:

@@ -603,3 +603,113 @@ def test_reduced_prefill_on_card_runs_the_kernels(dev, arch):
     want = model.prefill(params, batch, plain=True)
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+# ------------------------------------------------------------ LM training
+
+def test_forward_only_wrappers_refuse_gradients(dev):
+    """``flash_attention`` and ``wkv6`` stay forward-only: an input that
+    needs a gradient is refused where grad is enabled (the training
+    entries take it), and runs under ``no_grad``."""
+    q, k, v = _qkv(dev, 1, 16, 16, 2, 2, 16, torch.float32, 0)
+    r, kk, vv, w, u = _rkvwu(dev, 1, 16, 2, 16, "uniform", 0)
+    q.requires_grad_()
+    r.requires_grad_()
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        FA.flash_attention(q, k, v)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        WK.wkv6(r, kk, vv, w, u)
+    with torch.no_grad():
+        assert FA.flash_attention(q, k, v).shape == q.shape
+        assert WK.wkv6(r, kk, vv, w, u).shape == r.shape
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1e-2)], ids=str)
+def test_flash_attention_train_on_card(dev, dtype, tol):
+    """The forward is K5 (one launch on the kernel of its dtype), the
+    gradient the plain version's VJP (one recompute): the same gradient
+    as autograd through the plain version on the same tensors (1e-6; the
+    same arithmetic), the output within K5's bound."""
+    q, k, v = _qkv(dev, 2, 130, 130, 8, 2, 64, dtype, seed=7)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(8)
+                     ).to(dev, dtype)
+
+    def run(fn):
+        ts = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = fn(*ts, causal=True)
+        return out.detach(), torch.autograd.grad(out, ts, do)
+
+    FA.reset_launch_counts()
+    got, g_got = run(FA.flash_attention_train)
+    torch.cuda.synchronize()
+    kern = "flash_attention_sm90" if dtype == torch.bfloat16 else \
+        "flash_attention_f32"
+    assert FA.launches["flash_attention"] == FA.launches[kern] == 1
+    assert FA.recomputes["flash_attention_vjp"] == 1
+    assert not any(FA.plain_calls.values())
+    want, g_want = run(FA.flash_attention_plain)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    for a, b in zip(g_got, g_want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_wkv6_train_on_card(dev):
+    r, k, v, w, u = _rkvwu(dev, 2, 128, 3, 64, "uniform", seed=9)
+    dy = torch.randn(r.shape, generator=torch.Generator().manual_seed(10)
+                     ).to(dev)
+
+    def run(fn):
+        ts = [t.detach().requires_grad_() for t in (r, k, v, w, u)]
+        out = fn(*ts, chunk=32)
+        return out.detach(), torch.autograd.grad(out, ts, dy)
+
+    WK.reset_launch_counts()
+    got, g_got = run(WK.wkv6_train)
+    torch.cuda.synchronize()
+    assert all(n == 1 for n in WK.launches.values())
+    assert WK.recomputes["wkv6_vjp"] == 1
+    assert not any(WK.plain_calls.values())
+    want, g_want = run(WK.wkv6_plain)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    for a, b in zip(g_got, g_want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-3b"])
+def test_reduced_training_step_on_card_counts_the_kernels(dev, arch):
+    """One step of ``launch.train``'s recipe on the card with per-layer
+    remat: exactly 2 x n_layers K5 (or K6) launches (the forward and its
+    recompute) and n_layers VJP recomputes, no plain version; the loss
+    equals the plain path's within 1e-5 (float32)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.train import lm_train_step
+    from repro_torch.models import build_model, make_batch
+    from repro_torch.optim.adam import init_adam
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                              remat=True)
+    model = build_model(cfg, dev)
+    params = model.init(0)
+    batch = make_batch(cfg, ShapeConfig("t", 32, 2, "train"), "train",
+                       seed=0, device=dev)
+    with torch.no_grad():
+        want = float(model.loss(params, batch, plain=True))
+    FA.reset_launch_counts()
+    WK.reset_launch_counts()
+    _, _, loss, _ = lm_train_step(model, params, init_adam(params), batch, 0,
+                                  3e-4, 1)
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    if cfg.family == "dense":
+        assert FA.launches["flash_attention"] == \
+            FA.launches["flash_attention_f32"] == 2 * n
+        assert FA.recomputes["flash_attention_vjp"] == n
+    else:
+        assert all(c == 2 * n for c in WK.launches.values())
+        assert WK.recomputes["wkv6_vjp"] == n
+    assert not any({**FA.plain_calls, **WK.plain_calls}.values())
+    assert abs(float(loss) - want) <= 1e-5 * abs(want)

@@ -4,9 +4,11 @@
 the same problem reach the same loss (1e-4 relative), a distributed
 checkpoint resumes in the single-process trainer and continues the
 uninterrupted trajectory (1e-4), the inverse problem (``heat2d_inverse``
-on the US map, two nets) runs, ``lm`` raises ``NotImplementedError``, and
-without ``--device`` the entry point refuses to run where there is no
-card.
+on the US map, two nets) runs, ``lm`` trains a reduced ported family and
+prints its JSON line (the LM path's parity is
+``tests/test_torch_lm_train.py``) while the families not ported yet
+raise ``NotImplementedError``, and without ``--device`` the entry point
+refuses to run where there is no card.
 
 Small sizes: 2 x 2 Burgers, 16 x 2 nets, 64 residual points per
 subdomain, the reference's default residual path (jvp)."""
@@ -76,11 +78,33 @@ def test_inverse_heat_problem_on_the_us_map(capsys):
 
 
 def test_lm_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        train.main(["lm", "--arch", "llama3.2-1b"])
+    """``lm`` on a family whose blocks are not ported yet raises."""
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        train.main(["lm", "--arch", "deepseek-moe-16b", "--reduced",
+                    "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-3b"])
+def test_lm_runs_and_prints_its_json_line(capsys, arch):
+    assert train.main(["lm", "--arch", arch, "--reduced", "--device", "cpu",
+                       "--steps", "2", "--batch", "2", "--seq", "32",
+                       "--log-every", "1"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    out = json.loads(lines[-1])["train_lm"]
+    assert out["arch"] == arch and out["device"] == "cpu"
+    assert out["steps"] == 2 and len(out["losses"]) == 2
+    assert out["final_loss"] == out["losses"][-1] > 0
+    assert out["tokens_per_s"] > 0
+    assert any("step 2/2" in line for line in lines)
 
 
 def test_needs_a_card_unless_the_cpu_is_asked_for(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["pinn", *SMALL, "--steps", "1"])
+
+
+def test_lm_needs_a_card_unless_the_cpu_is_asked_for(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["lm", "--reduced", "--steps", "1"])
