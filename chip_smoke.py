@@ -5,6 +5,7 @@
     python3 chip_smoke.py --ab DIR   # K3/K4 against DIR's sources, in turns
     python3 chip_smoke.py --only distributed   # build + phase 7 only
     python3 chip_smoke.py --only scenarios     # build + phase 8 only
+    python3 chip_smoke.py --only lm            # build + phases 9-12 only
     python3 chip_smoke.py --only lm_train      # build + phase 13 only
 
 Run from the root of a checkout.  With ``--ab DIR`` only the build and an
@@ -126,29 +127,39 @@ any of them ends the run with a non-zero exit code and no result line:
    8/8, 4/1, head dims 64, 128, 100, S = T in {1, 37, 64, 130, 200, 333,
    2048}, and S != T causal (top-left) and not causal, each in the model's
    (B, S, H, dh) layout and as (B, H, S, dh) storage, every case counted on
-   the device kernel of its dtype; and K6 (WKV6: a chunk, a scan and an
-   output kernel) against its plain version (rtol = atol = 2e-4, the
-   reference's bound): P 16, 64, 128, T in {1, 5, 17, 31, 33, 256, 1000}
-   (B = 2) and T = 99 at B = 3, w from U(0.2, 0.98), a strong decay
-   w = 0.05 and a near-1 decay w ~ exp(-e^-6) (the init's decay_bias);
+   the device kernel of its dtype; K5 at minicpm3-4b's MLA shape (H = Hk =
+   40, a 96-wide q/k head over a 64-wide v head, causal, S = T in {1, 37,
+   130, 1024}, (B, S, H, dh) layout; bf16 by TMA, v zero-padded inside the
+   wrapper), under the same tolerances and counts; and K6 (WKV6: a chunk,
+   a scan and an output kernel) against its plain version run in float64
+   on the same inputs (rtol = atol = 2e-4, the reference's bound; the
+   float32 plain version's own distance from it is printed beside): P 16,
+   64, 128, T in {1, 5, 17, 31, 33, 256, 1000} (B = 2) and T = 99 at B =
+   3, w from U(0.2, 0.98), a strong decay w = 0.05 and a near-1 decay w ~
+   exp(-e^-6) (the init's decay_bias);
 10. **lm timing** — K5 at llama3.2-1b's per-layer prefill shape (B = 1,
    H = 32, Hk = 8, dh = 64, bf16, causal) at S = T = 4096 and 32768, beside
    its plain version and PyTorch's ``scaled_dot_product_attention`` on the
-   same tensors (timed only; the port never calls it); K6 at rwkv6-3b's
+   same tensors (timed only; the port never calls it); K5 at minicpm3-4b's
+   per-layer prefill shape (B = 1, S = T = 4096, H = Hk = 40, dh 96 over
+   dv 64, bf16, causal) beside its bound by its real work (2 (96 + 64)
+   FLOP per visible pair and head), its plain version and SDPA (on the
+   unpadded v where SDPA takes it, else on v padded to 96); K6 at rwkv6-3b's
    per-layer shape (B = 1, T = 4096, H = 40, P = 64, float32) beside its
    plain version;
-11. **llm** — llama3.2-1b and rwkv6-3b at their published width and depth,
-   weights drawn from a seed on the card: prefill (B = 2, S = 1024 /
-   B = 1, T = 1024) through the kernels with the launch counts set to 0 just
-   before and read just after (exactly n_layers K5 or K6 wrapper calls,
+11. **llm** — llama3.2-1b, minicpm3-4b (MLA) and rwkv6-3b at their
+   published width and depth, weights drawn from a seed on the card:
+   prefill (B = 2, S = 1024 / B = 2, S = 1024 / B = 1, T = 1024) through
+   the kernels with the launch counts set to 0 just before and read just
+   after (exactly n_layers K5 (dense, MLA) or K6 (rwkv) wrapper calls,
    each on its device kernels: the bf16 K5 kernel, or K6's chunk, scan
    and output kernels; no plain version on a CUDA tensor), a profiler
    trace of it (the device kernels' share found by their names), the same
    prefill through the plain versions in bf16 (difference printed) and in
    a float32 copy of the config (held at LLM_F32_TOL of max |logit|; for
-   llama through the float32 K5 kernel, one launch per layer), and 16 decode
-   steps held against the float32 prefill (2e-3 of max |logit|, the
-   reference's bound);
+   llama and minicpm3 through the float32 K5 kernel, one launch per layer),
+   and 16 decode steps (minicpm3's absorbed-latent decode) held against the
+   float32 prefill (2e-3 of max |logit|, the reference's bound);
 12. **llm serve** — ``repro_torch.launch.serve.main`` serves each of them at
    full size (``--no-reduced --batch 4 --prompt-len 16 --gen 16``), twice
    (the first run pays the card's first-use costs): a (4, 32) token array,
@@ -170,9 +181,12 @@ any of them ends the run with a non-zero exit code and no result line:
    (losses and params); (e) 40 steps of llama3.2-1b on one repeated batch
    must end at <= 0.9 x the first loss; (f) rwkv6-3b at full width and 12
    of its 32 layers, B = 1, T = 1024, 20 steps, counted as (a) on K6's
-   three kernels; (g) ms per step (median of the steps after the first
-   two), tokens/s and ``torch.cuda.max_memory_allocated`` of (a) and (f),
-   and torch.profiler over three steps of each (the last three of (e)):
+   three kernels, and minicpm3-4b at full width and 24 of its 62 layers,
+   B = 2, S = 1024, 20 steps, counted as (a) on the bf16 K5 kernel (no
+   resume run: (b) is llama's alone), through (c) and (d) as well; (g) ms
+   per step (median of the steps after the first two), tokens/s and
+   ``torch.cuda.max_memory_allocated`` of (a) and (f), and torch.profiler
+   over three steps of each (the last three of (e)):
    device busy ms, idle share, the K5 / K6 kernels' ms and launch counts
    (the traced remat factor), and the device ms inside the
    ``flash_attention_vjp`` / ``wkv6_vjp``, ``fused_head_ce`` and
@@ -180,7 +194,7 @@ any of them ends the run with a non-zero exit code and no result line:
    their plain versions, SDPA and the training entry's forward and
    backward;
 14. **report** — one ``{"kernels": [...]}`` line (K1-K6; K5 and K6 also
-   at the training shapes), the card's name
+   at the training shapes, K5 also at minicpm3's MLA shape), the card's name
    and power limit from ``nvidia-smi``, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Each phase prints its seconds.
@@ -191,9 +205,10 @@ and its operations over the card's rate for their type: K1-K4 their
 matrix-product FLOPs (two per multiply-add, pruned second-order streams not
 counted; K4 does two products per stream and layer), K6 the recurrence's
 4 P^2 FLOP per step and head, over 67 TFLOP/s, the H100 SXM's float32 rate
-outside the tensor cores; K5 its 4 dh FLOP per visible (query, key) pair
-and head over 989 TFLOP/s, the bf16 tensor-core rate, since it takes and
-returns bf16 at the timed shape.
+outside the tensor cores; K5 its 2 (dh + dv) FLOP per visible (query,
+key) pair and head (4 dh where dv = dh; MLA's padded v columns are not
+work the function needs) over 989 TFLOP/s, the bf16 tensor-core rate,
+since it takes and returns bf16 at the timed shapes.
 
 The script imports nothing of the JAX package.  Without a CUDA card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -266,16 +281,27 @@ WKV_TOL = 2e-4
 # package to 4e-7 on the CPU)
 LLM_F32_TOL = 1e-4
 DECODE_TOL = 2e-3        # decode vs prefill, the reference's bound
-LLM = {"llama3.2-1b": (2, 1024), "rwkv6-3b": (1, 1024)}   # prefill (B, S)
+LLM = {"llama3.2-1b": (2, 1024), "minicpm3-4b": (2, 1024),
+       "rwkv6-3b": (1, 1024)}                                # prefill (B, S)
+# the kernel wrapper each family's full causal forward calls once a layer
+FAMILY_KERNEL = {"dense": "flash_attention", "mla": "flash_attention",
+                 "rwkv": "wkv6"}
+# minicpm3-4b's expanded MLA attention: H = Hk = 40 heads, a 96-wide q/k
+# head (64 nope + 32 rope) over a 64-wide v head
+MLA_HEADS = (40, 96, 64)   # (H = Hk, dh, dv)
 # lm_train's runs of ``launch.train lm``: llama3.2-1b at its published size
 # (B x S cut from train_4k's 256 x 4096), checkpointed every LM_CKPT_EVERY
-# steps and resumed; rwkv6-3b at full width and 12 of its 32 layers: with
-# an out-of-place Adam the step's peak holds seven float32 copies of the
-# params, 86 GB at 3.06 B params, more than the card's 80 GB
+# steps and resumed; rwkv6-3b at full width and 12 of its 32 layers, and
+# minicpm3-4b at full width and 24 of its 62: with an out-of-place Adam the
+# step's peak holds seven float32 copies of the params, 86 GB at 3.06 B
+# params and 120 GB at 4.3 B, more than the card's 80 GB (minicpm3 at 16
+# layers peaked at 45.7 GB, so 24 layers, ~60 GB, still leave room)
 LM_TRAIN = {"llama3.2-1b": {"batch": 4, "seq": 1024, "steps": 30,
                             "layers": None, "resume": True},
             "rwkv6-3b": {"batch": 1, "seq": 1024, "steps": 20,
-                         "layers": 12, "resume": False}}
+                         "layers": 12, "resume": False},
+            "minicpm3-4b": {"batch": 2, "seq": 1024, "steps": 20,
+                            "layers": 24, "resume": False}}
 LM_CKPT_EVERY = 15
 # one loss and its gradient, kernel path against plain path in float32:
 # the loss relative, each gradient leaf scaled by max(1, max |want|)
@@ -2044,21 +2070,21 @@ def _allclose(got, want, tol) -> float:
     return err
 
 
-def _qkv(gen, B, S, T, H, Hk, dh, dtype, heads_first, dev):
-    """q (B, S, H, dh), k/v (B, T, Hk, dh) on the card; with
-    ``heads_first`` stored as (B, H, S, dh) and passed as transposed views
-    (the layout of the reference's ops signature)."""
+def _qkv(gen, B, S, T, H, Hk, dh, dtype, heads_first, dev, dv=None):
+    """q (B, S, H, dh), k (B, T, Hk, dh), v (B, T, Hk, dv) (dv = dh unless
+    given) on the card; with ``heads_first`` stored as (B, H, S, dh) and
+    passed as transposed views (the layout of the reference's ops
+    signature)."""
     import torch
 
+    dv = dh if dv is None else dv
     if heads_first:
-        q = torch.randn((B, H, S, dh), generator=gen, device=dev)
-        k, v = (torch.randn((B, Hk, T, dh), generator=gen, device=dev)
-                for _ in range(2))
-        return [t.to(dtype).transpose(1, 2) for t in (q, k, v)]
-    q = torch.randn((B, S, H, dh), generator=gen, device=dev)
-    k, v = (torch.randn((B, T, Hk, dh), generator=gen, device=dev)
-            for _ in range(2))
-    return [t.to(dtype) for t in (q, k, v)]
+        shapes = ((B, H, S, dh), (B, Hk, T, dh), (B, Hk, T, dv))
+        return [torch.randn(sh, generator=gen, device=dev).to(dtype)
+                .transpose(1, 2) for sh in shapes]
+    shapes = ((B, S, H, dh), (B, T, Hk, dh), (B, T, Hk, dv))
+    return [torch.randn(sh, generator=gen, device=dev).to(dtype)
+            for sh in shapes]
 
 
 def _rkvwu(gen, B, T, H, P, w_mode, dev):
@@ -2094,33 +2120,56 @@ def lm_sweep(dev) -> dict:
     cases += [(32, 8, dh, S, T, c) for dh in (64, 128, 100)
               for S, T in ((50, 130), (130, 50), (1, 64), (200, 333),
                            (333, 200)) for c in (True, False)]
+
+    def one(q, k, v, causal, dname):
+        """One K5 case: exactly one wrapper call on the device kernel of
+        its dtype (and, for bf16, the producer its strides allow), the
+        output in q's layout with v's width, within FA_TOL of the plain
+        version."""
+        before = {**FA.launches, **FA.producers}
+        got = FA.flash_attention(q, k, v, causal=causal)
+        want = FA.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        after = {**FA.launches, **FA.producers}
+        kern = ("flash_attention_sm90" if dname == "bfloat16"
+                else "flash_attention_f32")
+        ran = {n for n in after if after[n] != before[n]}
+        want_ran = {"flash_attention", kern}
+        dh = q.shape[-1]
+        if dname == "bfloat16":   # TMA where dh is a multiple of 8
+            want_ran.add("tma" if dh % 8 == 0 else "loads")
+        check(ran == want_ran, f"K5 {dname} dh{dh} launched {ran}")
+        check(got.shape == q.shape[:3] + v.shape[3:] and
+              got.stride() == q.stride(), "output layout")
+        err = _allclose(got, want, FA_TOL[dname])
+        worst[dname] = max(worst[dname], err)
+
     n_fa = 0
     for H, Hk, dh, S, T, causal in cases:
         for dname in ("float32", "bfloat16"):
             for heads_first in (False, True):
                 B = 1 if max(S, T) > 1000 else 2
-                q, k, v = _qkv(gen, B, S, T, H, Hk, dh, getattr(torch, dname),
-                               heads_first, dev)
-                before = {**FA.launches, **FA.producers}
-                got = FA.flash_attention(q, k, v, causal=causal)
-                want = FA.flash_attention_plain(q, k, v, causal=causal)
-                torch.cuda.synchronize()
-                after = {**FA.launches, **FA.producers}
-                kern = ("flash_attention_sm90" if dname == "bfloat16"
-                        else "flash_attention_f32")
-                ran = {n for n in after if after[n] != before[n]}
-                want_ran = {"flash_attention", kern}
-                if dname == "bfloat16":   # TMA where dh is a multiple of 8
-                    want_ran.add("tma" if dh % 8 == 0 else "loads")
-                check(ran == want_ran, f"K5 {dname} dh{dh} launched {ran}")
-                check(got.stride() == q.stride(), "output layout")
-                err = _allclose(got, want, FA_TOL[dname])
-                worst[dname] = max(worst[dname], err)
+                one(*_qkv(gen, B, S, T, H, Hk, dh, getattr(torch, dname),
+                          heads_first, dev), causal, dname)
                 n_fa += 1
         print(f"K5 H{H}/{Hk} dh{dh} S{S} T{T} causal={causal} ok")
-    emit({"k5_sweep_cases": n_fa, "tol": FA_TOL, "max_abs_err": dict(worst)})
+    # minicpm3-4b's MLA attention: v narrower than q and k
+    H, dh, dv = MLA_HEADS
+    n_mla = 0
+    for n in (1, 37, 130, 1024):
+        for dname in ("float32", "bfloat16"):
+            one(*_qkv(gen, 1, n, n, H, H, dh, getattr(torch, dname), False,
+                      dev, dv=dv), True, dname)
+            n_mla += 1
+        print(f"K5 MLA H{H}/{H} dh{dh} dv{dv} S=T={n} causal ok")
+    emit({"k5_sweep_cases": n_fa + n_mla, "k5_mla_cases": n_mla,
+          "tol": FA_TOL, "max_abs_err": dict(worst)})
 
-    wworst, n_wkv = 0.0, 0
+    # K6's plain version in float64 on the same (cast) inputs: the
+    # float32 plain version at a long chunk is itself off the recurrence at
+    # a strong decay (its cumulative log-decays reach -3 x 64), so each
+    # case also prints the float32 plain version's distance from it
+    wworst, pworst, n_wkv = 0.0, 0.0, 0
     wcases = [(2, T, chunk) for T, chunk in ((1, 1), (5, 5), (17, 17),
                                              (31, 31), (33, 11), (256, 64),
                                              (1000, 50))]
@@ -2131,23 +2180,34 @@ def lm_sweep(dev) -> dict:
                 args = _rkvwu(gen, B, T, 4, P, w_mode, dev)
                 before = dict(WK.launches)
                 got = WK.wkv6(*args)
-                want = WK.wkv6_plain(*args, chunk=chunk)
+                want = WK.wkv6_plain(*(a.double() for a in args),
+                                     chunk=chunk)
+                plain32 = WK.wkv6_plain(*args, chunk=chunk)
                 torch.cuda.synchronize()
                 check(all(WK.launches[n] == before[n] + 1 for n in before),
                       f"K6 launches {before} -> {WK.launches}")
-                err = _allclose(got, want, WKV_TOL)
-                wworst = max(wworst, err)
+                err = _allclose(got, want.float(), WKV_TOL)
+                perr = float((plain32.double() - want).abs().max())
+                wworst, pworst = max(wworst, err), max(pworst, perr)
                 n_wkv += 1
-                print(f"K6 P{P} B{B} T{T} w={w_mode} abs {err:.1e}")
-    emit({"k6_sweep_cases": n_wkv, "tol": WKV_TOL, "max_abs_err": wworst})
+                print(f"K6 P{P} B{B} T{T} w={w_mode} abs {err:.1e} "
+                      f"(float32 plain at chunk {chunk}: {perr:.1e})")
+    emit({"k6_sweep_cases": n_wkv, "tol": WKV_TOL, "max_abs_err": wworst,
+          "oracle": "wkv6_plain in float64",
+          "float32_plain_max_abs_err": pworst})
     return {"flash_attention": max(worst.values()), "wkv6": wworst}
 
 
-def fa_bound(B, S, H, Hk, dh, nbytes_el=2) -> tuple[float, str, int, int]:
-    """K5 at S == T, causal (top-left): q, k, v read once and o written once;
-    4 dh FLOP per visible (query, key) pair and head, S (S + 1) / 2 pairs."""
-    nbytes = nbytes_el * B * S * dh * (2 * H + 2 * Hk)
-    flops = 4 * dh * B * H * S * (S + 1) // 2
+def fa_bound(B, S, H, Hk, dh, nbytes_el=2,
+             dv=None) -> tuple[float, str, int, int]:
+    """K5 at S == T, causal (top-left): q, k (dh wide), v and o (dv wide,
+    dh unless given) read once and written once; 2 (dh + dv) FLOP per
+    visible (query, key) pair and head (the scores and the P V product),
+    S (S + 1) / 2 pairs.  A v narrower than dh counts at its own width:
+    the kernel's zero-padded columns are not work the function needs."""
+    dv = dh if dv is None else dv
+    nbytes = nbytes_el * B * S * (dh + dv) * (H + Hk)
+    flops = 2 * (dh + dv) * B * H * S * (S + 1) // 2
     t_bytes, t_ops = nbytes / HBM_BYTES, flops / BF16_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations", nbytes, flops)
@@ -2176,7 +2236,8 @@ def _sdpa(q, k, v):
                       SDPBackend.EFFICIENT_ATTENTION]):
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True).transpose(1, 2)
+            is_causal=True,
+            enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
 
 
 def lm_timing(dev) -> dict:
@@ -2209,6 +2270,36 @@ def lm_timing(dev) -> dict:
         emit({"timing": row})
         del q, k, v
         torch.cuda.empty_cache()
+    # minicpm3-4b's per-layer prefill attention (MLA: dv 64 under dh 96)
+    H, dh, dv = MLA_HEADS
+    S = 4096
+    q, k, v = _qkv(gen, B, S, S, H, H, dh, torch.bfloat16, False, dev, dv=dv)
+    kern = lambda: FA.flash_attention(q, k, v, causal=True)
+    plain = lambda: FA.flash_attention_plain(q, k, v, causal=True)
+    # SDPA for timing only: on the unpadded v where one of its fused
+    # backends takes dv != dh, else on v padded to dh (as K5 takes it)
+    try:
+        sdpa_ref = _sdpa(q, k, v)
+        sdpa_v, lib = "unpadded", lambda: _sdpa(q, k, v)
+    except RuntimeError as e:
+        vp = torch.nn.functional.pad(v, (0, dh - dv))
+        sdpa_v, lib = f"padded to {dh} ({str(e)[:80]})", \
+            lambda: _sdpa(q, k, vp)[..., :dv]
+        sdpa_ref = lib()
+    sdpa_err = float((sdpa_ref.float() - kern().float()).abs().max())
+    bms, by, nbytes, flops = fa_bound(B, S, H, H, dh, dv=dv)
+    row = {"kernel": "flash_attention",
+           "shape": f"B={B} S=T={S} H={H} Hk={H} dh={dh} dv={dv} bf16 causal"
+                    " (minicpm3-4b MLA)",
+           "ms": _graph_ms(kern, 20), "plain_ms": _events_ms(plain, 3),
+           "library_ms": _graph_ms(lib, 20), "sdpa_v": sdpa_v,
+           "bound_ms": bms, "bound_by": by, "bytes": nbytes, "flops": flops,
+           "sdpa_max_abs_diff": sdpa_err}
+    row["tflops"] = flops / row["ms"] * 1e-9
+    out[("flash_attention_mla", S)] = row
+    emit({"timing": row})
+    del q, k, v, sdpa_ref
+    torch.cuda.empty_cache()
     B, T, H, P = 1, 4096, 40, 64
     args = _rkvwu(gen, B, T, H, P, "near1", dev)
     bms, by, nbytes, flops = wkv_bound(B, T, H, P)
@@ -2284,9 +2375,10 @@ def _device_split(fn, kernels=None, scopes=()) -> dict:
 
 
 def llm_phase(dev) -> dict:
-    """The published llama3.2-1b and rwkv6-3b on the card: prefill through
-    the kernels (counted), its trace, the plain versions in bf16 and float32,
-    and decode against prefill."""
+    """The published llama3.2-1b, minicpm3-4b and rwkv6-3b on the card:
+    prefill through the kernels (counted), its trace, the plain versions in
+    bf16 and float32, and decode against prefill.  Returns the launches of
+    the counted prefills, summed over the models and by model."""
     import dataclasses
 
     import torch
@@ -2295,7 +2387,7 @@ def llm_phase(dev) -> dict:
     from repro_torch.kernels import wkv6 as WK
     from repro_torch.models import build_model
 
-    launches = {}
+    launches, by_arch = {}, {}
     for name, (B, S) in LLM.items():
         cfg = get_config(name)
         model = build_model(cfg, dev)
@@ -2304,8 +2396,7 @@ def llm_phase(dev) -> dict:
         tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
                                device=dev)
         batch = {"tokens": tokens}
-        kname, mod = (("flash_attention", FA) if cfg.family == "dense"
-                      else ("wkv6", WK))
+        kname = FAMILY_KERNEL[cfg.family]
         model.prefill(params, batch)          # warm-up (cuBLAS, the build)
         torch.cuda.synchronize()
         for m in (FA, WK):
@@ -2328,7 +2419,9 @@ def llm_phase(dev) -> dict:
               f"{name}: logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
               f"{name}: non-finite logits")
-        launches.update({n: counts[n] for n in (kname, *device)})
+        by_arch[name] = {n: counts[n] for n in (kname, *device)}
+        for n, c in by_arch[name].items():
+            launches[n] = launches.get(n, 0) + c
         split = _device_split(lambda: model.prefill(params, batch))
         split["idle_share"] = 1.0 - split["device_busy_ms"] / (secs * 1e3)
         check(all(split["kernel_ms"][n] > 0 for n in device),
@@ -2371,7 +2464,7 @@ def llm_phase(dev) -> dict:
             "profile": split}})
         del params, got, dec, cache, model, m32
         torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "by_arch": by_arch}
 
 
 def llm_serve_phase(dev) -> None:
@@ -2440,7 +2533,8 @@ def _check_lm_counts(name, family, steps, layers, remat) -> dict:
     counts = _lm_counts()
     n, fwd = steps * layers, steps * layers * (1 + int(remat))
     want = ({"flash_attention": fwd, "flash_attention_sm90": fwd,
-             "flash_attention_vjp": n} if family == "dense" else
+             "flash_attention_vjp": n}
+            if FAMILY_KERNEL[family] == "flash_attention" else
             {"wkv6": fwd, "wkv6_chunk": fwd, "wkv6_scan": fwd,
              "wkv6_out": fwd, "wkv6_vjp": n})
     want = {k: want.get(k, 0) for k in counts}
@@ -2519,14 +2613,16 @@ def _steady_ms(step_s) -> float:
     return 1e3 * tail[len(tail) // 2]
 
 
-def _lm_trace(model, params, opt, batch, start, total, kname) -> dict:
-    """Three recipe steps under torch.profiler: device busy ms, idle share,
-    the K5 / K6 device kernels' ms and launch counts, the LM scopes'
-    device ms and the three losses."""
+def _lm_trace(model, state, batch, start, total, kname) -> dict:
+    """Three recipe steps under torch.profiler from ``state`` = [params,
+    Adam state], updated in place (the caller holds no other reference, so
+    a step's peak is the untraced step's): device busy ms, idle share, the
+    K5 / K6 device kernels' ms and launch counts, the LM scopes' device ms
+    and the three losses."""
     import torch
     from repro_torch.launch import train
 
-    state, losses = [params, opt], []
+    losses = []
 
     def three():
         for s in range(start, start + 3):
@@ -2542,7 +2638,7 @@ def _lm_trace(model, params, opt, batch, start, total, kname) -> dict:
         split["profiled_wall_ms"]
     split["losses"] = losses
     torch.cuda.synchronize()
-    return split, state[0], state[1]
+    return split
 
 
 def _lm_kernel_times(dev) -> dict:
@@ -2698,8 +2794,7 @@ def lm_train_phase(dev) -> dict:
             for dtype in ("float32", "bfloat16"):
                 model = build_model(dataclasses.replace(cfg, dtype=dtype),
                                     dev)
-                kname = "flash_attention" if cfg.family == "dense" \
-                    else "wkv6"
+                kname = FAMILY_KERNEL[cfg.family]
                 _reset_lm_counts()
                 lk, gk = _lm_grads(model, params, batch, False)
                 kern = _lm_counts()
@@ -2765,7 +2860,7 @@ def lm_train_phase(dev) -> dict:
         # steps; (g) for rwkv6-3b on a fresh init
         for name, cell in LM_TRAIN.items():
             cfg = _lm_cfg(name)
-            kname = "flash_attention" if cfg.family == "dense" else "wkv6"
+            kname = FAMILY_KERNEL[cfg.family]
             model = build_model(cfg, dev)
             params = model.init(SEED + 3)
             opt = init_adam(params)
@@ -2779,8 +2874,9 @@ def lm_train_phase(dev) -> dict:
                     model, params, opt, batch, s, 3e-4, total)
                 losses.append(float(loss))
             _reset_lm_counts()
-            split, params, opt = _lm_trace(model, params, opt, batch,
-                                           total - 3, total, kname)
+            state = [params, opt]
+            del params, opt
+            split = _lm_trace(model, state, batch, total - 3, total, kname)
             traced = _lm_counts()
             losses += split["losses"]
             dev_kernel = "flash_attention_sm90" if kname == \
@@ -2805,7 +2901,7 @@ def lm_train_phase(dev) -> dict:
                       "batch")
             emit({"lm_train_trace": row})
             res[name]["trace"] = row
-            del params, opt, model
+            del state, model
             torch.cuda.empty_cache()
             t_part = time.perf_counter()
         res["kernel_times"] = _lm_kernel_times(dev)
@@ -2829,7 +2925,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write every phase's numbers to this JSON")
     ap.add_argument("--only", default=None,
-                    choices=("distributed", "scenarios", "lm_train"),
+                    choices=("distributed", "scenarios", "lm", "lm_train"),
                     help="only the build and this phase (no result line)")
     ap.add_argument("--ab", default=None, metavar="DIR",
                     help="only time this checkout's K3/K4 against the "
@@ -2864,6 +2960,14 @@ def main(argv=None) -> int:
         phase("ab", ab_phase, dev, args.ab, _rows(b_main))
         print(_smi())
         return 0
+    if args.only == "lm":
+        phase("build", build_phase)
+        phase("lm kernels", lm_sweep, dev)
+        phase("lm timing", lm_timing, dev)
+        phase("llm", llm_phase, dev)
+        phase("llm serve", llm_serve_phase, dev)
+        print(_smi())
+        return 0
     if args.only:
         phase("build", build_phase)
         phase(args.only, {"distributed": distributed_phase,
@@ -2895,7 +2999,9 @@ def main(argv=None) -> int:
         launches[k] = launches.get(k, 0) + v
     worst.update(phase("lm kernels", lm_sweep, dev))
     times.update(phase("lm timing", lm_timing, dev))
-    launches.update(phase("llm", llm_phase, dev))
+    llm = phase("llm", llm_phase, dev)
+    for k, v in llm["launches"].items():
+        launches[k] = launches.get(k, 0) + v
     phase("llm serve", llm_serve_phase, dev)
     lm_train = phase("lm train", lm_train_phase, dev)
     for k, v in lm_train["launches"].items():
@@ -2922,6 +3028,15 @@ def main(argv=None) -> int:
                 k: v for k, v in lm_train["kernel_times"][name].items()
                 if k not in ("bytes", "flops")}
             kernels[-1]["lm_train_launches"] = lm_train["launches"][name]
+        if name == "flash_attention":   # minicpm3-4b's MLA shape
+            mla = lm_train["minicpm3-4b"]
+            kernels[-1]["mla_shape"] = {
+                **{k: v for k, v in times[("flash_attention_mla", 4096)]
+                   .items() if k not in ("bytes", "flops")},
+                "prefill_launches": llm["by_arch"]["minicpm3-4b"][name],
+                "lm_train_launches": mla["launches"][name],
+                "lm_train_launches_per_step": mla["launches"][name]
+                / mla["steps"]}
     smi = _smi()
     if args.out:
         with open(args.out, "w") as f:

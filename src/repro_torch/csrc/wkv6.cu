@@ -14,7 +14,11 @@
 // with r, k, v, w (B, T, H, P) float32, w in (0, 1), u (H, P), the state S
 // (P, P) keyed [key channel, value channel].  Over a chunk n of c steps
 // (exact algebra, so c is this kernel's own, not the model's ssm_chunk):
-//   seg = inclusive cumsum of log w;  esc = seg - log w  (per channel)
+//   seg = inclusive cumsum of log w;  esc = exclusive cumsum (per channel),
+//         taken as seg of the step before, so that esc_i - seg_{i-1} is
+//         exactly 0: seg_i - log w_i would round at seg's scale (|seg|
+//         reaches 138 at w = 0.05), and under a strong decay the adjacent
+//         pair's decay is the largest term
 //   a_ij = sum_p r_ip k_jp exp(esc_ip - seg_jp)   (j < i: the PAIRWISE
 //          exponent, always <= 0; the factored form (r e^esc)(k e^-seg)^T
 //          overflows when decay is strong, e^-seg grows like w^-c)
@@ -144,18 +148,19 @@ __global__ void __launch_bounds__(kThreads) wkv6_chunk_kernel(Params p) {
   for (int c = tid; c < PP; c += kThreads) us[c] = c < P ? p.u[h * P + c] : 0.f;
   __syncthreads();
 
-  // seg (inclusive) and esc (exclusive): a warp per channel, a lane per step
+  // seg (inclusive) and esc (exclusive, the previous lane's seg): a warp
+  // per channel, a lane per step
   const int warp = tid >> 5, lane = tid & 31;
   for (int c = warp; c < PP; c += kThreads / 32) {
-    const float lw = gs[lane * LD + c];
-    float x = lw;
+    float x = gs[lane * LD + c];
 #pragma unroll
     for (int o = 1; o < kC; o <<= 1) {
       const float y = __shfl_up_sync(0xffffffffu, x, o);
       if (lane >= o) x += y;
     }
+    const float prev = __shfl_up_sync(0xffffffffu, x, 1);
     gs[lane * LD + c] = x;
-    es[lane * LD + c] = x - lw;
+    es[lane * LD + c] = lane == 0 ? 0.f : prev;
     if (lane == kC - 1) gl[c] = x;
   }
   __syncthreads();

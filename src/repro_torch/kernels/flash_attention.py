@@ -32,10 +32,14 @@ headers say what bounds them and how they are tiled.  This module holds
 * ``plain_calls``: the plain version's calls on CUDA tensors (prefill on a
   card leaves it at 0).
 
-Layout: the model's, q (B, S, H, dh) and k, v (B, T, Hk, dh) with H a
-multiple of Hk (query head h reads kv head h // (H / Hk)).  The kernel
-reads any strides with a contiguous head dim, so (B, H, S, dh) tensors go
-in as ``transpose(1, 2)`` views (``ops.flash_attention``).
+Layout: the model's, q (B, S, H, dh), k (B, T, Hk, dh) and v (B, T, Hk,
+dv) with H a multiple of Hk (query head h reads kv head h // (H / Hk)) and
+dv <= dh.  The kernel reads any strides with a contiguous head dim, so (B,
+H, S, dh) tensors go in as ``transpose(1, 2)`` views
+(``ops.flash_attention``).  A v narrower than q and k (MLA: dh = 96, dv =
+64) goes to the kernel zero-padded to dh, in one launch, and the output is
+sliced back to dv: the padded columns are sums of zeros, so the result is
+exact, and the scale stays 1/sqrt(dh).
 
 Causal alignment: TOP-LEFT.  With ``causal`` key t is visible to query s
 iff t <= s, whatever S and T are: the TPU kernel's mask (``k_pos <=
@@ -125,9 +129,9 @@ def flash_attention_plain(q, k, v, *, causal=True, block_q=512):
 # ------------------------------------------------------------------ wrapper
 
 def flash_attention(q, k, v, *, causal=True, block_q=512):
-    """K5: attention of q (B, S, H, dh) over k, v (B, T, Hk, dh), top-left
-    causal mask with ``causal``; returns (B, S, H, dh) in q's dtype (on a
-    card with q's strides where q is dense).
+    """K5: attention of q (B, S, H, dh) over k (B, T, Hk, dh) and v (B, T,
+    Hk, dv), dv <= dh, top-left causal mask with ``causal``; returns (B, S,
+    H, dv) in q's dtype (on a card with q's strides where q is dense).
 
     CPU tensors take the plain version (``block_q`` bounds its scores'
     memory; the kernels tile by their own sizes); CUDA tensors launch the
@@ -202,10 +206,11 @@ def _check(q, k, v):
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"{name}: q (B, S, H, dh), k and v (B, T, Hk, dh); "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
+            k.shape[:3] != v.shape[:3] or not 1 <= v.shape[3] <= q.shape[-1]:
+        raise ValueError(f"{name}: q (B, S, H, dh), k (B, T, Hk, dh) and v "
+                         f"(B, T, Hk, dv), dv <= dh; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, S, H, dh = q.shape
     if k.shape[0] != B or k.shape[3] != dh or H % k.shape[2]:
         raise ValueError(f"{name}: k/v {tuple(k.shape)} do not match q "
@@ -223,10 +228,15 @@ def _check(q, k, v):
 def _launch(q, k, v, causal):
     _check(q, k, v)
     B, S, H, dh = q.shape
-    T, Hk = k.shape[1], k.shape[2]
+    T, Hk, dv = k.shape[1], k.shape[2], v.shape[3]
+    if dv < dh:
+        # a narrower v (MLA's 64 under a 96-wide q/k head) goes in
+        # zero-padded to dh: the output's extra columns are sums of zeros,
+        # sliced off below; the scale stays 1/sqrt(dh)
+        v = torch.nn.functional.pad(v, (0, dh - dv))
     o = torch.empty_like(q)
     if S == 0 or B == 0:
-        return o
+        return o[..., :dv]
     bf16 = q.dtype == torch.bfloat16
     stem = "flash_attention_sm90" if bf16 else "flash_attention"
     fwd, err = _library(stem)
@@ -246,4 +256,4 @@ def _launch(q, k, v, causal):
         producers["tma" if producer.value == 1 else "loads"] += 1
     else:
         launches["flash_attention_f32"] += 1
-    return o
+    return o if dv == dh else o[..., :dv]

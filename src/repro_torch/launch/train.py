@@ -26,7 +26,7 @@ prints the backend, the ranks and each rank's device.  Unlike the
 reference, it never falls back to the single-process trainer.  The
 residual path is the reference's ``DDConfig`` default (``jvp``).
 
-``lm`` trains a ported family (dense, rwkv) on the synthetic token
+``lm`` trains a ported family (dense, mla, rwkv) on the synthetic token
 pipeline with the reference's recipe: each step a fresh batch
 (``make_batch(..., seed=seed * 100003 + step)``), ``CausalLM.loss`` and its
 gradient (per-layer remat, the chunked fused head cross-entropy; on the

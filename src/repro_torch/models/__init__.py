@@ -1,8 +1,9 @@
-"""The LLM side of the port: the dense (GQA) and RWKV6 families.
+"""The LLM side of the port: the dense (GQA), MLA and RWKV6 families.
 
 ``build_model(cfg)`` returns a :class:`CausalLM` with the reference's entry
-points ``init``, ``init_cache``, ``prefill`` and ``decode_step``; prefill on
-a card runs the flash-attention (K5) and WKV6 (K6) kernels.
+points ``init``, ``init_cache``, ``prefill``, ``decode_step`` and ``loss``;
+prefill and training on a card run the flash-attention (K5: dense, MLA) and
+WKV6 (K6: RWKV6) kernels.
 """
 from repro_torch.models.api import (build_model, make_batch,
                                     params_from_numpy, params_to_numpy)

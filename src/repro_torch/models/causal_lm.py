@@ -57,7 +57,7 @@ class CausalLM:
         if cfg.family not in BLOCKS:
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-                f"(ROADMAP Queue 1, item 14; ported: {', '.join(BLOCKS)})")
+                f"(ROADMAP Queue 1; ported: {', '.join(BLOCKS)})")
         self.cfg = cfg
         self.block = BLOCKS[cfg.family]
         self.device = resolve_device(device)

@@ -5,7 +5,7 @@ causal forward its attention is the flash-attention kernel (K5) on CUDA
 tensors and the kernel's plain version on the CPU
 (``layers.chunked_attention``); decode attends over the cache in plain
 torch.  The reference also registers this block for the VLM family, whose
-patch frontend is not ported yet (ROADMAP Queue 1, item 14).
+patch frontend is not ported yet (ROADMAP Queue 1).
 """
 from __future__ import annotations
 

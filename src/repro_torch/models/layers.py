@@ -106,7 +106,8 @@ def chunked_attention(q, k, v, *, causal=True, q_offset=0, block_q=512,
                       kv_len=None, plain=False):
     """GQA attention without materializing the full (S, T) score tensor.
 
-    q: (B, S, H, dh); k/v: (B, T, Hk, dh), H % Hk == 0.
+    q: (B, S, H, dh); k: (B, T, Hk, dh); v: (B, T, Hk, dv), H % Hk == 0,
+    dv <= dh (MLA's v head is narrower than its q/k head).
     q_offset: absolute position of q[0] (causal masking for prefill chunks).
     kv_len: optional (B,) valid cache lengths (decode); None -> all T valid.
 

@@ -507,8 +507,34 @@ def test_flash_attention_bf16_kernel_on_card(dev, dh, producer, S, T, causal,
                                atol=1e-2)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1e-2)], ids=str)
+@pytest.mark.parametrize("S", [1, 37, 130, 1024])
+def test_flash_attention_mla_shape_on_card(dev, S, dtype, tol):
+    """minicpm3-4b's attention: H = Hk = 40, a 96-wide q/k head over a
+    64-wide v head, causal.  One wrapper call, one launch of the kernel of
+    its dtype (bf16 by TMA: v goes in zero-padded to 96), a (B, S, H, 64)
+    output with q's strides, within K5's bound of the plain version."""
+    q, k, _ = _qkv(dev, 1, S, S, 40, 40, 96, dtype, seed=S)
+    v = torch.randn((1, S, 40, 64), generator=torch.Generator().manual_seed(
+        S + 1)).to(dev, dtype)
+    FA.reset_launch_counts()
+    got = FA.flash_attention(q, k, v, causal=True)
+    want = FA.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    kern = "flash_attention_sm90" if dtype == torch.bfloat16 else \
+        "flash_attention_f32"
+    assert FA.launches["flash_attention"] == FA.launches[kern] == 1
+    if dtype == torch.bfloat16:
+        assert FA.producers == {"tma": 1, "loads": 0}
+    assert got.shape == v.shape[:3] + (64,) and got.stride() == q.stride()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 def test_flash_attention_refuses_what_it_does_not_take(dev):
     q, k, v = _qkv(dev, 1, 8, 8, 2, 2, 16, torch.float32, 0)
+    with pytest.raises(ValueError, match="dv <= dh"):
+        FA.flash_attention(q[..., :8], k[..., :8], v)
     with pytest.raises(TypeError):
         FA.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="head dim"):
@@ -565,6 +591,18 @@ def test_wkv6_ragged_on_card(dev, B, T, H, P, chunk, w_mode):
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_wkv6_strong_decay_against_float64_on_card(dev, seed):
+    """w = 0.05 over 256 steps against the plain version in float64: the
+    kernel's exclusive log-decay sums keep the adjacent pair's exponent
+    exact, so it holds the reference's 2e-4 (the float32 plain version at
+    a chunk of 64 does not always: its own rounding reaches it)."""
+    r, k, v, w, u = _rkvwu(dev, 2, 256, 4, 64, "strong", seed=100 + seed)
+    got = WK.wkv6(r, k, v, w, u)
+    want = WK.wkv6_plain(*(t.double() for t in (r, k, v, w, u)), chunk=64)
+    torch.testing.assert_close(got, want.float(), rtol=2e-4, atol=2e-4)
+
+
 def test_wkv6_refuses_what_it_does_not_take(dev):
     r, k, v, w, u = _rkvwu(dev, 1, 8, 2, 16, "uniform", 0)
     with pytest.raises(TypeError):
@@ -575,7 +613,7 @@ def test_wkv6_refuses_what_it_does_not_take(dev):
         WK.wkv6(r, k.transpose(1, 2).contiguous().transpose(1, 2), v, w, u)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "minicpm3-4b", "rwkv6-3b"])
 def test_reduced_prefill_on_card_runs_the_kernels(dev, arch):
     """The reduced model's prefill on the card launches K5 (or K6) once per
     layer, runs no plain version on a CUDA tensor, and its float32 logits
@@ -595,8 +633,8 @@ def test_reduced_prefill_on_card_runs_the_kernels(dev, arch):
     WK.reset_launch_counts()
     got = model.prefill(params, batch)
     torch.cuda.synchronize()
-    name, mod = (("flash_attention", FA) if cfg.family == "dense"
-                 else ("wkv6", WK))
+    name, mod = (("wkv6", WK) if cfg.family == "rwkv"
+                 else ("flash_attention", FA))
     assert mod.launches[name] == cfg.n_layers
     assert not any(FA.plain_calls.values()) and \
         not any(WK.plain_calls.values())
@@ -654,6 +692,34 @@ def test_flash_attention_train_on_card(dev, dtype, tol):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1e-2)], ids=str)
+def test_flash_attention_train_mla_shape_on_card(dev, dtype, tol):
+    """The training entry at MLA's dh 96 / dv 64: one K5 launch (v padded
+    inside), and the gradient of the unpadded v, equal to autograd through
+    the plain version."""
+    q, k, _ = _qkv(dev, 1, 130, 130, 40, 40, 96, dtype, seed=11)
+    g = torch.Generator().manual_seed(12)
+    v = torch.randn((1, 130, 40, 64), generator=g).to(dev, dtype)
+    do = torch.randn((1, 130, 40, 64), generator=g).to(dev, dtype)
+
+    def run(fn):
+        ts = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = fn(*ts, causal=True)
+        return out.detach(), torch.autograd.grad(out, ts, do)
+
+    FA.reset_launch_counts()
+    got, g_got = run(FA.flash_attention_train)
+    torch.cuda.synchronize()
+    assert FA.launches["flash_attention"] == 1
+    assert FA.recomputes["flash_attention_vjp"] == 1
+    assert g_got[2].shape == v.shape
+    want, g_want = run(FA.flash_attention_plain)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    for a, b in zip(g_got, g_want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
 def test_wkv6_train_on_card(dev):
     r, k, v, w, u = _rkvwu(dev, 2, 128, 3, 64, "uniform", seed=9)
     dy = torch.randn(r.shape, generator=torch.Generator().manual_seed(10)
@@ -676,7 +742,7 @@ def test_wkv6_train_on_card(dev):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "minicpm3-4b", "rwkv6-3b"])
 def test_reduced_training_step_on_card_counts_the_kernels(dev, arch):
     """One step of ``launch.train``'s recipe on the card with per-layer
     remat: exactly 2 x n_layers K5 (or K6) launches (the forward and its
@@ -704,7 +770,7 @@ def test_reduced_training_step_on_card_counts_the_kernels(dev, arch):
                                   3e-4, 1)
     torch.cuda.synchronize()
     n = cfg.n_layers
-    if cfg.family == "dense":
+    if cfg.family != "rwkv":
         assert FA.launches["flash_attention"] == \
             FA.launches["flash_attention_f32"] == 2 * n
         assert FA.recomputes["flash_attention_vjp"] == n

@@ -1,8 +1,8 @@
 """PyTorch port of the LLM prefill-and-serve path against the JAX package:
 configs, the param tree, ``CausalLM.prefill`` / ``decode_step`` and the
-greedy ``launch.serve.generate`` of llama3.2-1b (dense GQA) and rwkv6-3b
-at reduced size, with the reference's params carried across key by key
-(``models.params_from_numpy``).
+greedy ``launch.serve.generate`` of llama3.2-1b (dense GQA), minicpm3-4b
+(MLA) and rwkv6-3b at reduced size, with the reference's params carried
+across key by key (``models.params_from_numpy``).
 
 Tolerances, relative to max |logit| of the reference's prefill:
 * float32: 1e-5.  The two frameworks sum in another order; measured up to
@@ -42,7 +42,7 @@ from repro_torch.launch import serve
 from repro_torch.models import (build_model, make_batch, params_from_numpy,
                                 params_to_numpy)
 
-ARCH_NAMES = ("llama3.2-1b", "rwkv6-3b")
+ARCH_NAMES = ("llama3.2-1b", "minicpm3-4b", "rwkv6-3b")
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 
 
@@ -133,11 +133,11 @@ def test_params_and_batches_carry_across():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", ARCH_NAMES)
 def test_prefill_and_decode_match_reference(name, dtype):
-    """Prefill logits (a 37-token prompt for llama: two ragged attention
-    blocks; 32 for rwkv: two WKV chunks) and 16 decode steps from an empty
-    cache against the reference."""
+    """Prefill logits (a 37-token prompt for the attention families: two
+    ragged attention blocks; 32 for rwkv: two WKV chunks) and 16 decode
+    steps from an empty cache against the reference."""
     jm, jp, model, params = _pair(name, dtype)
-    S = 37 if name.startswith("llama") else 32
+    S = 32 if name.startswith("rwkv") else 37
     toks = _tokens(model.cfg, 2, S)
     want = _np(jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(toks,
                                                               jnp.int32)}))
@@ -216,7 +216,7 @@ def test_prefill_on_cpu_takes_the_plain_versions():
 
 def test_build_model_families_and_device():
     for name, cfg in ARCHS.items():
-        if cfg.family in ("dense", "rwkv"):
+        if cfg.family in ("dense", "mla", "rwkv"):
             assert build_model(cfg.reduced(), "cpu").device.type == "cpu"
         else:
             with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -18,7 +18,8 @@ rounding of the sums (1e-5 here).
 
 K6's twin repeats ``csrc/wkv6.cu``: a chunk pass, the same for every
 chunk of 32 steps (ragged end padded with r = k = v = 0, w = 1), giving the
-intra-chunk y with the pairwise exponent, r~ = r e^esc, d_n = e^seg_last and
+intra-chunk y with the pairwise exponent (esc the previous step's seg),
+r~ = r e^esc, d_n = e^seg_last and
 dS_n = (k e^(seg_last - seg))^T v; then the scan, S_{n+1} = diag(d_n) S_n +
 dS_n elementwise from S_0 = 0, walking the chunks in order; then the output
 pass, y += r~ S_n for every chunk at once.  The split is exact algebra: in
@@ -170,7 +171,7 @@ def _wkv6_split_twin(r, k, v, w, u, c=32):
     r, k, v = (F.pad(t, pad).reshape(B, n, c, H, P) for t in (r, k, v))
     lw = torch.log2(F.pad(w, pad, value=1.0) + 1e-38).reshape(B, n, c, H, P)
     seg = torch.cumsum(lw, dim=2)
-    esc = seg - lw
+    esc = F.pad(seg[:, :, :-1], (0, 0, 0, 0, 1, 0))   # seg of the step before
     # chunk pass: every chunk alike, no state
     below = torch.tril(torch.ones((c, c), dtype=torch.bool), diagonal=-1)
     dec = torch.where(below[None, None, :, :, None, None],
@@ -209,6 +210,22 @@ def test_wkv6_split_twin_vs_plain(B, T, H, P, chunk, w):
     want = WK.wkv6_plain(*arrs, chunk=chunk)
     got = _wkv6_split_twin(*arrs)
     torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_wkv6_split_twin_strong_decay_in_float32(seed):
+    """Under a strong decay (w = 0.05: |seg| reaches 138 in log2 units over
+    a chunk) the float32 twin stays within 2e-5 (1 + |want|) of the plain
+    version in float64, a tenth of the reference's bound: its esc is the
+    previous step's seg, so the adjacent pair's exponent is exactly 0.
+    Taken as seg - log w instead, it rounds at seg's scale and the twin
+    misses this bound (the kernel missed 2e-4 on the card)."""
+    B, T, H, P = 2, 256, 4, 64
+    arrs = [torch.tensor(a) for a in _rkvwu(_rng("strong", seed), B, T, H, P,
+                                            w=0.05)]
+    want = WK.wkv6_plain(*(a.double() for a in arrs), chunk=64)
+    got = _wkv6_split_twin(*arrs).double()
+    assert float(((got - want).abs() / (1 + want.abs())).max()) <= 2e-5
 
 
 @pytest.mark.parametrize("T,w", [(48, None), (48, 0.05), (20, None)])

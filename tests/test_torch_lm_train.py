@@ -1,9 +1,9 @@
 """PyTorch port of the LM training path against the JAX package:
 ``layers.cross_entropy`` / ``fused_head_cross_entropy``, ``CausalLM.loss``
-and its gradients (llama3.2-1b and rwkv6-3b, reduced), per-layer remat,
-the kernels' training entries (``flash_attention_train``, ``wkv6_train``)
-and ``launch.train lm`` with its checkpoints, the reference's params and
-checkpoints carried across.
+and its gradients (llama3.2-1b, minicpm3-4b and rwkv6-3b, reduced),
+per-layer remat, the kernels' training entries (``flash_attention_train``,
+``wkv6_train``) and ``launch.train lm`` with its checkpoints, the
+reference's params and checkpoints carried across.
 
 Tolerances:
 * loss and gradients against the reference in float32: the loss within
@@ -42,7 +42,7 @@ from repro_torch.launch import train
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.models import layers as L
 
-ARCH_NAMES = ("llama3.2-1b", "rwkv6-3b")
+ARCH_NAMES = ("llama3.2-1b", "minicpm3-4b", "rwkv6-3b")
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 SAME = 1e-6
@@ -189,8 +189,8 @@ def test_loss_and_grads_match_reference(name, dtype):
     # the training entries ran, one VJP recompute per layer, on the CPU's
     # plain versions (no kernel launch)
     n = model.cfg.n_layers
-    rec = FA.recomputes["flash_attention_vjp"] if name.startswith("llama") \
-        else WK.recomputes["wkv6_vjp"]
+    rec = WK.recomputes["wkv6_vjp"] if name.startswith("rwkv") \
+        else FA.recomputes["flash_attention_vjp"]
     assert rec == n
     assert FA.launches["flash_attention"] == 0 and WK.launches["wkv6"] == 0
 

@@ -84,7 +84,7 @@ def test_lm_is_not_ported_yet():
                     "--device", "cpu"])
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "minicpm3-4b", "rwkv6-3b"])
 def test_lm_runs_and_prints_its_json_line(capsys, arch):
     assert train.main(["lm", "--arch", arch, "--reduced", "--device", "cpu",
                        "--steps", "2", "--batch", "2", "--seq", "32",
