@@ -130,7 +130,9 @@ any of them ends the run with a non-zero exit code and no result line:
    the device kernel of its dtype; K5 at minicpm3-4b's MLA shape (H = Hk =
    40, a 96-wide q/k head over a 64-wide v head, causal, S = T in {1, 37,
    130, 1024}, (B, S, H, dh) layout; bf16 by TMA, v zero-padded inside the
-   wrapper), under the same tolerances and counts; and K6 (WKV6: a chunk,
+   wrapper), under the same tolerances and counts; K5 at the MoE configs'
+   prefill shapes (B 2, S = T = 1024: deepseek-moe-16b's H = Hk = 16 and
+   phi3.5-moe's 32/8, dh 128), both dtypes; and K6 (WKV6: a chunk,
    a scan and an output kernel) against its plain version run in float64
    on the same inputs (rtol = atol = 2e-4, the reference's bound; the
    float32 plain version's own distance from it is printed beside): P 16,
@@ -144,24 +146,39 @@ any of them ends the run with a non-zero exit code and no result line:
    per-layer prefill shape (B = 1, S = T = 4096, H = Hk = 40, dh 96 over
    dv 64, bf16, causal) beside its bound by its real work (2 (96 + 64)
    FLOP per visible pair and head), its plain version and SDPA (on the
-   unpadded v where SDPA takes it, else on v padded to 96); K6 at rwkv6-3b's
+   unpadded v where SDPA takes it, else on v padded to 96); K5 at
+   deepseek-moe-16b's (H = Hk = 16) and phi3.5-moe's (32/8) per-layer
+   prefill shapes (B 1, S = T = 4096, dh 128, bf16, causal) beside the
+   same three; K6 at rwkv6-3b's
    per-layer shape (B = 1, T = 4096, H = 40, P = 64, float32) beside its
    plain version;
-11. **llm** — llama3.2-1b, minicpm3-4b (MLA) and rwkv6-3b at their
-   published width and depth, weights drawn from a seed on the card:
-   prefill (B = 2, S = 1024 / B = 2, S = 1024 / B = 1, T = 1024) through
-   the kernels with the launch counts set to 0 just before and read just
-   after (exactly n_layers K5 (dense, MLA) or K6 (rwkv) wrapper calls,
+11. **llm** — llama3.2-1b, minicpm3-4b (MLA), rwkv6-3b and
+   deepseek-moe-16b (MoE: the dense prelude and 27 MoE layers of 64
+   routed experts, top-6, and 2 shared) at their published width and
+   depth, and phi3.5-moe at full width and 4 of its 32 layers (LLM_LAYERS),
+   weights drawn from a seed on the card: prefill (B = 2, S = 1024 / B =
+   2, S = 1024 / B = 1, T = 1024 / B = 2, S = 1024 / B = 2, S = 1024)
+   through the kernels with the launch counts set to 0 just before and read
+   just after (exactly n_layers K5 (dense, MLA, MoE) or K6 (rwkv) wrapper
+   calls,
    each on its device kernels: the bf16 K5 kernel, or K6's chunk, scan
    and output kernels; no plain version on a CUDA tensor), a profiler
    trace of it (the device kernels' share found by their names), the same
    prefill through the plain versions in bf16 (difference printed) and in
    a float32 copy of the config (held at LLM_F32_TOL of max |logit|; for
-   llama and minicpm3 through the float32 K5 kernel, one launch per layer),
-   and 16 decode steps (minicpm3's absorbed-latent decode) held against the
-   float32 prefill (2e-3 of max |logit|, the reference's bound);
-12. **llm serve** — ``repro_torch.launch.serve.main`` serves each of them at
-   full size (``--no-reduced --batch 4 --prompt-len 16 --gen 16``), twice
+   the attention families through the float32 K5 kernel, one launch per
+   layer; for MoE the (layer, token) routes whose experts differ between
+   the kernel and plain passes are counted and printed, and where there are
+   any the plain pass is run again on the kernel pass's routes, replayed,
+   and held at the same bar), and 16 decode steps (minicpm3's
+   absorbed-latent decode) held against the float32 prefill (2e-3 of max
+   |logit|, the reference's bound); MoE decode drops no token while a
+   prefill drops those past capacity, so for MoE a B = 2, S = 64 prompt at
+   capacity_factor 64 is prefilled and its first 16 tokens decoded, within
+   1e-4 (the reference's drop-free bound);
+12. **llm serve** — ``repro_torch.launch.serve.main`` serves each of them
+   that runs at full depth (all but phi3.5-moe) at full size
+   (``--no-reduced --batch 4 --prompt-len 16 --gen 16``), twice
    (the first run pays the card's first-use costs): a (4, 32) token array,
    its tokens/s printed;
 13. **lm train** — ``repro_torch.launch.train.main(["lm", ...])`` on the
@@ -183,7 +200,11 @@ any of them ends the run with a non-zero exit code and no result line:
    of its 32 layers, B = 1, T = 1024, 20 steps, counted as (a) on K6's
    three kernels, and minicpm3-4b at full width and 24 of its 62 layers,
    B = 2, S = 1024, 20 steps, counted as (a) on the bf16 K5 kernel (no
-   resume run: (b) is llama's alone), through (c) and (d) as well; (g) ms
+   resume run: (b) is llama's alone), and deepseek-moe-16b at full width
+   and 4 of its 28 layers (the dense prelude and 3 MoE layers), B = 2, S =
+   1024, 20 steps, counted as (a), its mean load-balance term printed,
+   through (c) (routes that differ counted, and replayed where any do, as
+   in phase 11) and (d) as well; (g) ms
    per step (median of the steps after the first two), tokens/s and
    ``torch.cuda.max_memory_allocated`` of (a) and (f), and torch.profiler
    over three steps of each (the last three of (e)):
@@ -194,7 +215,8 @@ any of them ends the run with a non-zero exit code and no result line:
    their plain versions, SDPA and the training entry's forward and
    backward;
 14. **report** — one ``{"kernels": [...]}`` line (K1-K6; K5 and K6 also
-   at the training shapes, K5 also at minicpm3's MLA shape), the card's name
+   at the training shapes, K5 also at minicpm3's MLA shape and the MoE
+   configs' shapes), the card's name
    and power limit from ``nvidia-smi``, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Each phase prints its seconds.
@@ -282,26 +304,45 @@ WKV_TOL = 2e-4
 LLM_F32_TOL = 1e-4
 DECODE_TOL = 2e-3        # decode vs prefill, the reference's bound
 LLM = {"llama3.2-1b": (2, 1024), "minicpm3-4b": (2, 1024),
-       "rwkv6-3b": (1, 1024)}                                # prefill (B, S)
+       "rwkv6-3b": (1, 1024), "deepseek-moe-16b": (2, 1024),
+       "phi3.5-moe-42b-a6.6b": (2, 1024)}                    # prefill (B, S)
+# depth cuts of the llm phase (the others run at full depth and are also
+# served): phi3.5-moe's 41.9 B float32 params (168 GB) do not fit the card,
+# 4 of its 32 layers (5.5 B, 22 GB) do
+LLM_LAYERS = {"phi3.5-moe-42b-a6.6b": 4}
 # the kernel wrapper each family's full causal forward calls once a layer
 FAMILY_KERNEL = {"dense": "flash_attention", "mla": "flash_attention",
-                 "rwkv": "wkv6"}
+                 "moe": "flash_attention", "rwkv": "wkv6"}
+# the MoE configs' attention heads (H, Hk, dh): K5's shapes on their path
+MOE_HEADS = {"deepseek-moe-16b": (16, 16, 128),
+             "phi3.5-moe-42b-a6.6b": (32, 8, 128)}
+# MoE decode against prefill with capacity dropping off (a prefill drops
+# tokens past capacity, a one-token step never does): a (B, S) prompt at
+# capacity_factor 64, its first DROP_FREE_STEPS positions decoded, within
+# the reference's bound (tests/test_models.py:90-94)
+DROP_FREE = (2, 64)
+DROP_FREE_STEPS = 16
+DROP_FREE_TOL = 1e-4
 # minicpm3-4b's expanded MLA attention: H = Hk = 40 heads, a 96-wide q/k
 # head (64 nope + 32 rope) over a 64-wide v head
 MLA_HEADS = (40, 96, 64)   # (H = Hk, dh, dv)
 # lm_train's runs of ``launch.train lm``: llama3.2-1b at its published size
 # (B x S cut from train_4k's 256 x 4096), checkpointed every LM_CKPT_EVERY
 # steps and resumed; rwkv6-3b at full width and 12 of its 32 layers, and
-# minicpm3-4b at full width and 24 of its 62: with an out-of-place Adam the
-# step's peak holds seven float32 copies of the params, 86 GB at 3.06 B
-# params and 120 GB at 4.3 B, more than the card's 80 GB (minicpm3 at 16
-# layers peaked at 45.7 GB, so 24 layers, ~60 GB, still leave room)
+# minicpm3-4b at full width and 24 of its 62, deepseek-moe-16b at full
+# width and 4 of its 28 (the dense prelude and 3 MoE layers, 2.26 B
+# params): with an out-of-place Adam the step's peak holds seven float32
+# copies of the params, 86 GB at 3.06 B params and 120 GB at 4.3 B, more
+# than the card's 80 GB (minicpm3 at 16 layers peaked at 45.7 GB, so 24
+# layers, ~60 GB, still leave room; deepseek at 4 layers ~63 GB)
 LM_TRAIN = {"llama3.2-1b": {"batch": 4, "seq": 1024, "steps": 30,
                             "layers": None, "resume": True},
             "rwkv6-3b": {"batch": 1, "seq": 1024, "steps": 20,
                          "layers": 12, "resume": False},
             "minicpm3-4b": {"batch": 2, "seq": 1024, "steps": 20,
-                            "layers": 24, "resume": False}}
+                            "layers": 24, "resume": False},
+            "deepseek-moe-16b": {"batch": 2, "seq": 1024, "steps": 20,
+                                 "layers": 4, "resume": False}}
 LM_CKPT_EVERY = 15
 # one loss and its gradient, kernel path against plain path in float32:
 # the loss relative, each gradient leaf scaled by max(1, max |want|)
@@ -2162,8 +2203,16 @@ def lm_sweep(dev) -> dict:
                       dev, dv=dv), True, dname)
             n_mla += 1
         print(f"K5 MLA H{H}/{H} dh{dh} dv{dv} S=T={n} causal ok")
-    emit({"k5_sweep_cases": n_fa + n_mla, "k5_mla_cases": n_mla,
-          "tol": FA_TOL, "max_abs_err": dict(worst)})
+    # the MoE configs' attention at their prefill shape (B 2, S = T = 1024)
+    n_moe = 0
+    for H, Hk, dh in MOE_HEADS.values():
+        for dname in ("float32", "bfloat16"):
+            one(*_qkv(gen, 2, 1024, 1024, H, Hk, dh, getattr(torch, dname),
+                      False, dev), True, dname)
+            n_moe += 1
+        print(f"K5 MoE H{H}/{Hk} dh{dh} S=T=1024 causal ok")
+    emit({"k5_sweep_cases": n_fa + n_mla + n_moe, "k5_mla_cases": n_mla,
+          "k5_moe_cases": n_moe, "tol": FA_TOL, "max_abs_err": dict(worst)})
 
     # K6's plain version in float64 on the same (cast) inputs: the
     # float32 plain version at a long chunk is itself off the recurrence at
@@ -2300,6 +2349,27 @@ def lm_timing(dev) -> dict:
     emit({"timing": row})
     del q, k, v, sdpa_ref
     torch.cuda.empty_cache()
+    # the MoE configs' per-layer prefill attention (dense GQA, dh 128)
+    for name, (H, Hk, dh) in MOE_HEADS.items():
+        q, k, v = _qkv(gen, B, S, S, H, Hk, dh, torch.bfloat16, False, dev)
+        kern = lambda: FA.flash_attention(q, k, v, causal=True)
+        lib = lambda: _sdpa(q, k, v)
+        sdpa_err = float((lib().float() - kern().float()).abs().max())
+        bms, by, nbytes, flops = fa_bound(B, S, H, Hk, dh)
+        row = {"kernel": "flash_attention",
+               "shape": f"B={B} S=T={S} H={H} Hk={Hk} dh={dh} bf16 causal"
+                        f" ({name})",
+               "ms": _graph_ms(kern, 20),
+               "plain_ms": _events_ms(lambda: FA.flash_attention_plain(
+                   q, k, v, causal=True), 3),
+               "library_ms": _graph_ms(lib, 20), "bound_ms": bms,
+               "bound_by": by, "bytes": nbytes, "flops": flops,
+               "sdpa_max_abs_diff": sdpa_err}
+        row["tflops"] = flops / row["ms"] * 1e-9
+        out[("flash_attention_moe", name)] = row
+        emit({"timing": row})
+        del q, k, v
+        torch.cuda.empty_cache()
     B, T, H, P = 1, 4096, 40, 64
     args = _rkvwu(gen, B, T, H, P, "near1", dev)
     bms, by, nbytes, flops = wkv_bound(B, T, H, P)
@@ -2374,11 +2444,78 @@ def _device_split(fn, kernels=None, scopes=()) -> dict:
             "profiled_wall_ms": wall}
 
 
+@contextlib.contextmanager
+def _moe_routes(replay=None):
+    """Record the experts each MoE layer's router picks (``moe.route``), in
+    call order, while the block runs; with ``replay`` (an earlier pass's
+    record, call for call) route by those experts instead, their gates
+    taken from this pass's probabilities, still recording this pass's own
+    picks."""
+    import torch
+    from repro_torch.models import moe
+
+    own, route = [], moe.route
+
+    def wrapped(cfg, p, xg):
+        probs, gate, idx = route(cfg, p, xg)
+        own.append(idx)
+        if replay is None:
+            return probs, gate, idx
+        idx = replay[len(own) - 1]
+        gate = torch.gather(probs, -1, idx)
+        return probs, gate / torch.clamp(gate.sum(-1, keepdim=True),
+                                         min=1e-9), idx
+
+    moe.route = wrapped
+    try:
+        yield own
+    finally:
+        moe.route = route
+
+
+def _route_flips(a, b) -> tuple[int, int]:
+    """(routes, routes whose expert sets differ) between two passes'
+    records (one (..., k) tensor of experts per router call)."""
+    check(len(a) == len(b), f"router calls {len(a)} != {len(b)}")
+    n = sum(x[..., 0].numel() for x in a)
+    flips = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+                for x, y in zip(a, b))
+    return n, flips
+
+
+def _drop_free_decode(cfg, params, tokens, dev) -> float:
+    """MoE decode against prefill with capacity dropping off: the first
+    DROP_FREE prompt of ``tokens`` prefilled at capacity_factor 64 in
+    float32, its first DROP_FREE_STEPS tokens decoded one at a time from
+    an empty cache; the largest logit difference over max |logit|."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import build_model
+
+    B, S = DROP_FREE
+    model = build_model(dataclasses.replace(cfg, dtype="float32",
+                                            capacity_factor=64.0), dev)
+    toks = tokens[:B, :S]
+    full = model.prefill(params, {"tokens": toks})[..., :cfg.vocab]
+    cache = model.init_cache(B, DROP_FREE_STEPS)
+    dec = []
+    for t in range(DROP_FREE_STEPS):
+        lg, cache = model.decode_step(params, cache,
+                                      {"tokens": toks[:, t:t + 1]}, t)
+        dec.append(lg[:, 0, :cfg.vocab])
+    diff = (torch.stack(dec, 1) - full[:, :DROP_FREE_STEPS]).abs().max()
+    return float(diff) / float(full.abs().max())
+
+
 def llm_phase(dev) -> dict:
-    """The published llama3.2-1b, minicpm3-4b and rwkv6-3b on the card:
+    """The published llama3.2-1b, minicpm3-4b, rwkv6-3b and
+    deepseek-moe-16b, and phi3.5-moe at 4 of its 32 layers, on the card:
     prefill through the kernels (counted), its trace, the plain versions in
-    bf16 and float32, and decode against prefill.  Returns the launches of
-    the counted prefills, summed over the models and by model."""
+    bf16 and float32 (MoE: the routes that differ counted, the values held
+    on the kernel pass's routes), and decode against prefill (MoE: drop
+    free).  Returns the launches of the counted prefills, summed over the
+    models and by model."""
     import dataclasses
 
     import torch
@@ -2390,6 +2527,8 @@ def llm_phase(dev) -> dict:
     launches, by_arch = {}, {}
     for name, (B, S) in LLM.items():
         cfg = get_config(name)
+        if name in LLM_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=LLM_LAYERS[name])
         model = build_model(cfg, dev)
         params = model.init(SEED)
         gen = torch.Generator(device=dev).manual_seed(SEED + 6)
@@ -2434,35 +2573,67 @@ def llm_phase(dev) -> dict:
 
         m32 = build_model(dataclasses.replace(cfg, dtype="float32"), dev)
         FA.reset_launch_counts()
-        got = m32.prefill(params, batch)
+        with _moe_routes() as k_routes:
+            got = m32.prefill(params, batch)
         check(kname != "flash_attention" or
               FA.launches["flash_attention_f32"] == cfg.n_layers,
               f"{name}: float32 prefill launches {FA.launches}")
-        want = m32.prefill(params, batch, plain=True)
+        with _moe_routes() as p_routes:
+            want = m32.prefill(params, batch, plain=True)
         scale = float(want[..., :cfg.vocab].abs().max())
         f32_rel = float((got - want)[..., :cfg.vocab].abs().max()) / scale
+        moe = {}
+        if cfg.family == "moe":
+            # a near-tie can flip a route under float32 reordering, and a
+            # flipped route moves its token's values by far more than the
+            # bar: the flips are counted, and where there are any the
+            # values are held on the kernel pass's routes, replayed
+            n_routes, flips = _route_flips(k_routes, p_routes)
+            moe = {"routes": n_routes, "route_flips": flips,
+                   "f32_rel_own_routes": f32_rel}
+            if flips:
+                del want
+                with _moe_routes(replay=k_routes):
+                    want = m32.prefill(params, batch, plain=True)
+                f32_rel = float((got - want)[..., :cfg.vocab].abs().max()) \
+                    / scale
+                moe["f32_rel_replayed_routes"] = f32_rel
+            print(f"{name}: {flips} of {n_routes} (layer, token) routes "
+                  "differ between the float32 kernel and plain passes")
+        del k_routes, p_routes
         check(f32_rel <= LLM_F32_TOL,
-              f"{name}: float32 prefill kernels vs plain {f32_rel:.3e}")
+              f"{name}: float32 prefill kernels vs plain {f32_rel:.3e} "
+              f"{moe}")
         del want
-        cache = m32.init_cache(B, 16)
-        dec = []
-        for t in range(16):
-            lg, cache = m32.decode_step(params, cache,
-                                        {"tokens": tokens[:, t:t + 1]}, t)
-            dec.append(lg[:, 0])
-        dec_rel = float((torch.stack(dec, 1) - got[:, :16])[
-            ..., :cfg.vocab].abs().max()) / scale
-        check(dec_rel <= DECODE_TOL, f"{name}: decode vs prefill "
-                                     f"{dec_rel:.3e}")
+        if cfg.family == "moe":
+            del got
+            dec_rel, dec_tol = _drop_free_decode(cfg, params, tokens,
+                                                 dev), DROP_FREE_TOL
+        else:
+            cache = m32.init_cache(B, 16)
+            dec = []
+            for t in range(16):
+                lg, cache = m32.decode_step(params, cache,
+                                            {"tokens": tokens[:, t:t + 1]}, t)
+                dec.append(lg[:, 0])
+            dec_rel = float((torch.stack(dec, 1) - got[:, :16])[
+                ..., :cfg.vocab].abs().max()) / scale
+            dec_tol = DECODE_TOL
+            del got, dec, cache
+        check(dec_rel <= dec_tol, f"{name}: decode vs prefill "
+                                  f"{dec_rel:.3e}")
         emit({"llm": {
             "arch": name, "batch": B, "seq": S, "layers": cfg.n_layers,
             "d_model": cfg.d_model, "prefill_s": secs,
             "prefill_tokens_per_s": B * S / secs, "launches": counts,
             "plain_calls_on_cuda": plain, "bf16_kernel_vs_plain_rel": bf16_rel,
             "f32_kernel_vs_plain_rel": f32_rel, "f32_tol": LLM_F32_TOL,
-            "decode_vs_prefill_rel": dec_rel, "decode_tol": DECODE_TOL,
+            "decode_vs_prefill_rel": dec_rel, "decode_tol": dec_tol,
+            **({"moe": moe, "drop_free_decode": {
+                "prompt": list(DROP_FREE), "steps": DROP_FREE_STEPS,
+                "capacity_factor": 64.0}} if moe else {}),
             "profile": split}})
-        del params, got, dec, cache, model, m32
+        del params, model, m32
         torch.cuda.empty_cache()
     return {"launches": launches, "by_arch": by_arch}
 
@@ -2476,6 +2647,8 @@ def llm_serve_phase(dev) -> None:
     argv = ["--no-reduced", "--batch", "4", "--prompt-len", "16", "--gen",
             "16"]
     for name in LLM:
+        if name in LLM_LAYERS:   # cut in depth: not served
+            continue
         runs = []
         for _ in range(2):   # the first one pays the card's first-use costs
             buf = io.StringIO()
@@ -2508,6 +2681,26 @@ def _train_lm(argv) -> dict:
         rc = train.main(["lm", *argv])
     check(rc == 0, f"train lm {argv} exited {rc}")
     return json.loads(buf.getvalue().strip().splitlines()[-1])["train_lm"]
+
+
+@contextlib.contextmanager
+def _moe_aux():
+    """Record the load-balance term of every MoE layer call (``moe.moe_ffn``;
+    a remat recompute calls it again) while the block runs."""
+    from repro_torch.models import moe
+
+    auxes, ffn = [], moe.moe_ffn
+
+    def wrapped(cfg, p, x):
+        out, aux = ffn(cfg, p, x)
+        auxes.append(aux.detach())
+        return out, aux
+
+    moe.moe_ffn = wrapped
+    try:
+        yield auxes
+    finally:
+        moe.moe_ffn = ffn
 
 
 def _lm_counts() -> dict:
@@ -2729,8 +2922,9 @@ def lm_train_phase(dev) -> dict:
             torch.cuda.reset_peak_memory_stats()
             _reset_lm_counts()
             t0 = time.perf_counter()
-            run = _train_lm(argv + (["--ckpt-dir", a_dir] if cell["resume"]
-                                    else []))
+            with _moe_aux() as auxes:
+                run = _train_lm(argv + (["--ckpt-dir", a_dir]
+                                        if cell["resume"] else []))
             secs = time.perf_counter() - t0
             counts = _check_lm_counts(name, cfg.family, cell["steps"],
                                       cfg.n_layers, cfg.remat)
@@ -2752,6 +2946,12 @@ def lm_train_phase(dev) -> dict:
                    "max_memory_allocated_gb":
                    torch.cuda.max_memory_allocated() / 1e9,
                    "steps_s": sum(run["step_s"]), "launches": counts}
+            if auxes:   # MoE: the load-balance term (1.0 when balanced)
+                aux = [float(a) for a in auxes]
+                check(all(np.isfinite(aux)), f"{name}: aux {aux}")
+                row["mean_aux"] = sum(aux) / len(aux)
+                row["aux_calls"] = len(aux)
+            del auxes
             if cell["resume"]:
                 b_dir = os.path.join(tmp, f"{name}-b")
                 _link_step(a_dir, b_dir, LM_CKPT_EVERY)
@@ -2796,9 +2996,21 @@ def lm_train_phase(dev) -> dict:
                                     dev)
                 kname = FAMILY_KERNEL[cfg.family]
                 _reset_lm_counts()
-                lk, gk = _lm_grads(model, params, batch, False)
+                with _moe_routes() as k_routes:
+                    lk, gk = _lm_grads(model, params, batch, False)
                 kern = _lm_counts()
-                lp, gp = _lm_grads(model, params, batch, True)
+                with _moe_routes() as p_routes:
+                    lp, gp = _lm_grads(model, params, batch, True)
+                if cfg.family == "moe":
+                    # as in the llm phase: flipped routes counted, the
+                    # values then held on the kernel pass's routes
+                    n_routes, flips = _route_flips(k_routes, p_routes)
+                    row[f"{dtype}_route_flips"] = [flips, n_routes]
+                    if flips:
+                        del gp
+                        with _moe_routes(replay=k_routes):
+                            lp, gp = _lm_grads(model, params, batch, True)
+                del k_routes, p_routes
                 after = _lm_counts()
                 fwd = cfg.n_layers * (1 + int(cfg.remat))
                 # the plain path adds plain calls, no kernel launch
@@ -3037,6 +3249,15 @@ def main(argv=None) -> int:
                 "lm_train_launches": mla["launches"][name],
                 "lm_train_launches_per_step": mla["launches"][name]
                 / mla["steps"]}
+            kernels[-1]["moe_shapes"] = {
+                arch: {**{k: v for k, v in times[("flash_attention_moe",
+                                                  arch)].items()
+                          if k not in ("bytes", "flops")},
+                       "prefill_launches": llm["by_arch"][arch][name],
+                       **({"lm_train_launches":
+                           lm_train[arch]["launches"][name]}
+                          if arch in lm_train else {})}
+                for arch in MOE_HEADS}
     smi = _smi()
     if args.out:
         with open(args.out, "w") as f:

@@ -17,6 +17,7 @@ from repro_torch.core.nets import params_from_numpy, params_to_numpy  # noqa: F4
 # block registration side effects
 from repro_torch.models import dense as _dense  # noqa: F401
 from repro_torch.models import mla as _mla      # noqa: F401
+from repro_torch.models import moe as _moe      # noqa: F401
 from repro_torch.models import ssm as _ssm      # noqa: F401
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models.causal_lm import CausalLM
@@ -24,8 +25,8 @@ from repro_torch.models.causal_lm import CausalLM
 
 def build_model(cfg: ModelConfig, device=None) -> CausalLM:
     """The model of ``cfg`` on ``device`` (``cuda`` unless given).  The
-    families ported are ``dense``, ``mla`` and ``rwkv``; every other family
-    raises ``NotImplementedError``."""
+    families ported are ``dense``, ``mla``, ``moe`` and ``rwkv``; the others
+    (``vlm``, ``hybrid``, ``encdec``) raise ``NotImplementedError``."""
     return CausalLM(cfg, device)
 
 

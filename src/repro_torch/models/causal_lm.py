@@ -11,18 +11,22 @@ flash-attention kernel and every RWKV time-mix layer's the WKV6 kernel,
 their backward being the plain versions' VJP), ``prefill`` (the full causal
 forward through the same kernels) and ``decode_step`` (one token against a
 cache, plain torch on every device, as in the reference, where no Pallas
-kernel serves decode).
+kernel serves decode).  A config with ``first_dense`` leading dense layers
+(deepseek-moe-16b) runs them as a ``prelude`` stack of the dense block
+(``d_ff_dense`` wide) before its ``n_layers - first_dense`` main layers;
+its params and caches then hold ``prelude`` beside ``layers``.  ``loss``
+adds the MoE load-balance term, ``0.01 *`` the mean of the layers'
+``ys["aux"]``.
 
 The model lives on one device, ``cuda`` unless the caller asks for the CPU
 (``build_model(cfg, device="cpu")``); its params and caches are made there.
 Not ported yet (ROADMAP Queue 1): the ``logical`` / ``*_specs`` sharding
-trees, the deepseek ``prelude`` of dense layers, the VLM patch frontend,
-and with them the parts of ``loss`` that only those families reach (the
-MoE load-balance term ``ys["aux"]`` and the VLM's patch slice).
+trees and the VLM patch frontend, with the patch slice of ``loss`` that
+only the VLM reaches.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable
 
 import torch
@@ -60,7 +64,14 @@ class CausalLM:
                 f"(ROADMAP Queue 1; ported: {', '.join(BLOCKS)})")
         self.cfg = cfg
         self.block = BLOCKS[cfg.family]
+        # leading dense layers outside the homogeneous stack (deepseek-moe)
+        self.prelude = BLOCKS["dense"] if cfg.first_dense else None
+        self._n_main = cfg.n_layers - cfg.first_dense
         self.device = resolve_device(device)
+
+    def _prelude_cfg(self) -> ModelConfig:
+        return replace(self.cfg, family="dense",
+                       d_ff=self.cfg.d_ff_dense or self.cfg.d_ff)
 
     def _generator(self, gen) -> torch.Generator:
         if isinstance(gen, torch.Generator):
@@ -78,27 +89,40 @@ class CausalLM:
         p = {
             "embed": L.init_embedding(g, cfg.padded_vocab, cfg.d_model),
             "layers": L.stack_init(lambda gg: self.block.init(gg, cfg), g,
-                                   cfg.n_layers),
+                                   self._n_main),
             "final_norm": L.ones(g, (cfg.d_model,)),
         }
+        if self.prelude:
+            pc = self._prelude_cfg()
+            p["prelude"] = L.stack_init(lambda gg: self.prelude.init(gg, pc),
+                                        g, cfg.first_dense)
         if not cfg.tie_embeddings:
             p["head"] = L.init_lm_head(g, cfg.d_model, cfg.padded_vocab)
         return p
 
     # ------------------------------------------------------------------- cache
+    def _stacked_cache(self, block, cfg, n_layers, B, T):
+        one = block.init_cache(cfg, B, T, _dtype(cfg), self.device)
+        return {k: t.new_zeros((n_layers,) + t.shape) for k, t in one.items()}
+
     def init_cache(self, batch_size: int, seq_len: int):
         """Zero per-layer caches, stacked on a leading L axis (None for a
-        family without one)."""
+        family without one); ``{"prelude", "layers"}`` with a prelude."""
         if self.block.init_cache is None:
             return None
-        one = self.block.init_cache(self.cfg, batch_size, seq_len,
-                                    _dtype(self.cfg), self.device)
-        return {k: t.new_zeros((self.cfg.n_layers,) + t.shape)
-                for k, t in one.items()}
+        main = self._stacked_cache(self.block, self.cfg, self._n_main,
+                                   batch_size, seq_len)
+        if not self.prelude:
+            return main
+        pre = self._stacked_cache(self.prelude, self._prelude_cfg(),
+                                  self.cfg.first_dense, batch_size, seq_len)
+        return {"prelude": pre, "layers": main}
 
     # ----------------------------------------------------------------- forward
     def _hidden(self, params, batch, cache=None, pos=None, plain=False):
-        """Backbone up to (and including) the final norm. Returns (x, new_cache).
+        """Backbone up to (and including) the final norm. Returns (x,
+        new_cache | ys): without a cache, the main layers' stacked outputs
+        (the MoE block's ``{"aux": ...}``, else None).
 
         The layers run under ``cfg.remat`` / ``cfg.remat_policy`` as in the
         reference; remat acts only where grad is enabled (``loss``)."""
@@ -114,14 +138,27 @@ class CausalLM:
         ctx = dict(positions=positions, pos=pos, q_offset=0,
                    mode="decode" if pos is not None else "full", plain=plain)
 
+        main_cache, pre_cache = cache, None
+        if self.prelude and cache is not None:
+            pre_cache, main_cache = cache["prelude"], cache["layers"]
+
+        new_pre = None
+        if self.prelude:
+            pc = self._prelude_cfg()
+            x, new_pre = L.scan_layers(
+                lambda lp, h, lc: self.prelude.apply(pc, lp, h, lc, ctx),
+                params["prelude"], x, pre_cache, remat=cfg.remat,
+                policy=cfg.remat_policy)
+
         def block_fn(lp, h, lc):
             return self.block.apply(cfg, lp, h, lc, ctx)
 
-        x, new_cache = L.scan_layers(block_fn, params["layers"], x, cache,
-                                     remat=cfg.remat,
-                                     policy=cfg.remat_policy)
+        x, new_main = L.scan_layers(block_fn, params["layers"], x, main_cache,
+                                    remat=cfg.remat, policy=cfg.remat_policy)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return x, new_cache
+        if self.prelude and cache is not None:
+            return x, {"prelude": new_pre, "layers": new_main}
+        return x, new_main
 
     def forward(self, params, batch, cache=None, pos=None, *, plain=False):
         """batch: {"tokens": (B, S)}.
@@ -151,16 +188,20 @@ class CausalLM:
         """Teacher-forced next-token loss via the CHUNKED fused head + CE
         (the full float32 logits are never materialized).  batch: tokens and
         labels (B, S), optionally ``loss_mask``.  Differentiable in
-        ``params``; ``plain=True`` as in :meth:`forward`.
+        ``params``; ``plain=True`` as in :meth:`forward`.  MoE models add
+        ``0.01 *`` the mean load-balance term of their layers.
 
-        The reference also slices off the VLM's patch positions and adds
-        the MoE load-balance term; those families are not ported yet."""
+        The reference also slices off the VLM's patch positions; that
+        family is not ported yet."""
         cfg = self.cfg
-        x, _ = self._hidden(params, batch, plain=plain)
+        x, ys = self._hidden(params, batch, plain=plain)
         w, tied = self._head_weight(params)
-        return L.fused_head_cross_entropy(
+        loss = L.fused_head_cross_entropy(
             x, w, batch["labels"], batch.get("loss_mask"), transpose_w=tied,
             n_valid=cfg.vocab if cfg.padded_vocab != cfg.vocab else None)
+        if isinstance(ys, dict) and "aux" in ys:  # MoE load-balance loss
+            loss = loss + 0.01 * torch.mean(ys["aux"])
+        return loss
 
     @torch.no_grad()
     def prefill(self, params, batch, *, plain=False):

@@ -1,4 +1,5 @@
-"""Dense GQA transformer block (llama3.2-1b, yi-34b, qwen2.5-14b).
+"""Dense GQA transformer block (llama3.2-1b, yi-34b, qwen2.5-14b; the dense
+prelude of deepseek-moe-16b).
 
 Counterpart of the reference package's ``models/dense.py``.  In the full
 causal forward its attention is the flash-attention kernel (K5) on CUDA

@@ -66,8 +66,17 @@ def stack_trees(trees: list):
 
 
 def stack_init(layer_init, gen, n_layers):
-    """Stacked (L, ...) params from ``n_layers`` draws of ``layer_init``."""
-    return stack_trees([layer_init(gen) for _ in range(n_layers)])
+    """Stacked (L, ...) params from ``n_layers`` draws of ``layer_init``,
+    copied into the stack one layer at a time: the peak holds the stack and
+    one layer (deepseek-moe-16b's 63 GB of float32 layers fit a card once,
+    not twice)."""
+    first = layer_init(gen)
+    out = map_tree(lambda t: t.new_empty((n_layers,) + t.shape), first)
+    for l in range(n_layers):
+        layer = first if l == 0 else layer_init(gen)
+        map_trees(lambda o, t: o[l].copy_(t), out, layer)
+        del layer
+    return out
 
 
 # ------------------------------------------------------------------------ norms

@@ -1,0 +1,175 @@
+"""Mixture-of-Experts block (deepseek-moe-16b fine-grained, phi3.5-moe).
+
+Counterpart of the reference package's ``models/moe.py``: grouped,
+capacity-based dispatch with the reference's exact drop semantics.
+
+1. The router's top-k over E experts, the lower index first on ties (as
+   ``jax.lax.top_k``; ``torch.topk`` promises no order), and the top-k
+   gates normalised.
+2. The T tokens split into G groups (:func:`_n_groups`).  In each group
+   the token-major (token, slot) pairs are stably sorted by expert; a
+   pair's position is its rank within its expert, and pairs at or past
+   the capacity C (:func:`capacity`) are DROPPED.
+3. The kept pairs written into a (G, E, C, d) buffer by one indexed write
+   into its flat (G * E * C, d) view.  Kept pairs have unique (expert,
+   position) destinations, so the write needs no atomics.
+4. A batched SwiGLU over the experts.
+5. Each token's k outputs gathered back, gated, and summed over the k
+   slots in slot order (deterministic on a card; the reference's
+   scatter-add up to float order).
+
+DeepSeek's always-on shared experts run as a dense SwiGLU of width
+``n_shared_experts * d_expert``.  The Switch load-balance term ``E *
+sum_e f_e p_e`` leaves :func:`apply` as ``{"aux": aux}`` when there is no
+cache, and ``CausalLM.loss`` adds ``0.01 *`` its mean over the layers.
+``f_e`` comes from counts and carries no gradient; ``p_e`` does.
+
+The reference has no Pallas kernel for MoE: the router, the sort, the
+dispatch and the expert products are plain torch on every device.  The
+attention is the dense block's (``layers.attention_block``), so prefill
+and training run the flash-attention kernel (K5) on CUDA tensors.
+``cfg.moe_shard_map`` selects the reference's ``moe_ffn_shardmap``,
+expert parallelism over a GSPMD mesh with one global capacity and no
+groups: other drop semantics, not ported (ROADMAP Queue 1), so it
+raises.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import dense
+from repro_torch.models import layers as L
+from repro_torch.models.causal_lm import BlockDef, register_block
+
+
+def init(gen, cfg: ModelConfig):
+    E, d, de = cfg.n_experts, cfg.d_model, cfg.d_expert
+    p = {
+        "attn_norm": L.ones(gen, (d,)),
+        "attn": L.init_gqa(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                           bias=cfg.qkv_bias),
+        "mlp_norm": L.ones(gen, (d,)),
+        "router": L.normal_init(gen, (d, E), std=0.02),
+        "experts": {
+            "wi": L.normal_init(gen, (E, d, de)),
+            "wg": L.normal_init(gen, (E, d, de)),
+            "wo": L.normal_init(gen, (E, de, d)),
+        },
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = L.init_swiglu(gen, d, cfg.n_shared_experts * de)
+    return p
+
+
+def _n_groups(T: int) -> int:
+    """Token groups of the grouped dispatch: capacity is enforced per
+    group (the reference's GShard-style grouping, copied exactly)."""
+    g = 256
+    while g > 1 and T // g < 64:
+        g //= 2
+    return g
+
+
+def capacity(cfg: ModelConfig, group_tokens: int) -> int:
+    return max(4, int(math.ceil(group_tokens * cfg.top_k / cfg.n_experts
+                                * cfg.capacity_factor)))
+
+
+def route(cfg: ModelConfig, p, xg):
+    """The router on xg (G, t, d): float32 probabilities (G, t, E), the
+    normalised top-k gates and their experts (G, t, k).  The product runs
+    in xg's dtype and is then cast to float32, as in the reference; the
+    top k come from a stable descending sort, so ties keep the lower
+    expert first."""
+    logits = (xg @ p["router"].to(xg.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = vals[..., :cfg.top_k], idx[..., :cfg.top_k]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    return probs, gate, idx
+
+
+def moe_ffn(cfg: ModelConfig, p, x):
+    """Grouped sort-based dispatch. x: (B, S, d) -> (out, aux_loss)."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    G = _n_groups(T)
+    t = T // G                                           # tokens per group
+    dt = x.dtype
+    xg = x.reshape(G, t, d)
+    probs, gate, idx = route(cfg, p, xg)
+
+    # load-balance aux (Switch-style): E * sum_e f_e * p_e
+    me = probs.mean(dim=(0, 1))
+    ce = torch.bincount(idx.reshape(-1), minlength=E).float() / (T * k)
+    aux = E * torch.sum(me * ce)
+
+    C = capacity(cfg, t)
+    e_flat = idx.reshape(G, t * k)                       # token-major slots
+    # one batched stable sort: a slot's position is its rank in its expert
+    order = torch.argsort(e_flat, dim=-1, stable=True)
+    e_sorted = torch.gather(e_flat, 1, order)
+    counts = torch.zeros((G, E), dtype=torch.int64, device=x.device)
+    counts.scatter_add_(1, e_flat, torch.ones_like(e_flat))
+    starts = torch.cumsum(counts, dim=1) - counts
+    pos_sorted = torch.arange(t * k, device=x.device) - \
+        torch.gather(starts, 1, e_sorted)
+    pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
+    keep = pos < C                               # token-major (G, t*k)
+    pos_c = torch.clamp(pos, max=C - 1)
+    g_off = torch.arange(G, device=x.device)[:, None] * E
+    slot = (g_off + e_flat) * C + pos_c          # row of the flat buffer
+
+    # dispatch: the kept slots' rows written once each; dropped slots go to
+    # a spare last row, which is cut off
+    vals = xg.repeat_interleave(k, dim=1) * keep[..., None].to(dt)
+    dst = torch.where(keep, slot, G * E * C)
+    buf = torch.zeros((G * E * C + 1, d), dtype=dt, device=x.device)
+    buf = buf.index_put((dst.reshape(-1),), vals.reshape(-1, d))
+    buf = buf[:-1].reshape(G, E, C, d)
+
+    ex = p["experts"]
+    h = F.silu(torch.einsum("gecd,edf->gecf", buf, ex["wg"].to(dt)))
+    h = h * torch.einsum("gecd,edf->gecf", buf, ex["wi"].to(dt))
+    out_buf = torch.einsum("gecf,efd->gecd", h, ex["wo"].to(dt))
+
+    # combine: a gather over (token, slot), gated, summed over the k slots
+    back = out_buf.reshape(G * E * C, d)[slot] * keep[..., None].to(dt)
+    w = gate.to(dt).reshape(G, t * k, 1)
+    out = (back * w).reshape(G, t, k, d).sum(dim=2)
+    out = out.reshape(B, S, d)
+    if cfg.n_shared_experts:
+        out = out + L.swiglu(p["shared"], x)
+    return out, aux
+
+
+def apply(cfg: ModelConfig, lp, x, lc, ctx):
+    if cfg.moe_shard_map:
+        raise NotImplementedError(
+            f"{cfg.name}: moe_shard_map=True (the reference's expert-"
+            "parallel moe_ffn_shardmap over a GSPMD mesh) is not ported; "
+            "see ROADMAP Queue 1")
+    h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    attn_out, new_cache = L.attention_block(
+        lp["attn"], h, cfg=cfg, positions=ctx["positions"], cache=lc,
+        pos=ctx["pos"], causal=True, q_offset=ctx["q_offset"],
+        plain=ctx["plain"],
+    )
+    x = x + attn_out
+    h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    ff, aux = moe_ffn(cfg, lp, h)
+    x = x + ff
+    if new_cache is None:
+        # no cache: the per-layer aux loss leaves through the scan's output
+        return x, {"aux": aux}
+    return x, new_cache
+
+
+# the dense block's KV cache
+register_block("moe", BlockDef(init=init, apply=apply,
+                               init_cache=dense.init_cache))

@@ -613,11 +613,13 @@ def test_wkv6_refuses_what_it_does_not_take(dev):
         WK.wkv6(r, k.transpose(1, 2).contiguous().transpose(1, 2), v, w, u)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "minicpm3-4b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "minicpm3-4b", "rwkv6-3b",
+                                  "deepseek-moe-16b"])
 def test_reduced_prefill_on_card_runs_the_kernels(dev, arch):
     """The reduced model's prefill on the card launches K5 (or K6) once per
-    layer, runs no plain version on a CUDA tensor, and its float32 logits
-    match the plain path on the card within 1e-4 of max |logit|."""
+    layer (deepseek-moe-16b: the dense prelude's and the MoE layer's),
+    runs no plain version on a CUDA tensor, and its float32 logits match
+    the plain path on the card within 1e-4 of max |logit|."""
     import dataclasses
 
     from repro_torch.configs import get_config

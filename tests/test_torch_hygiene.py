@@ -49,7 +49,7 @@ def test_scan_sees_the_whole_port():
                  "launch/serve_field.py", "checkpoint/ckpt.py",
                  "core/trainer.py", "core/losses.py", "core/halo.py",
                  "data/points.py", "optim/adam.py", "launch/quickstart.py",
-                 "models/causal_lm.py", "models/mla.py",
+                 "models/causal_lm.py", "models/mla.py", "models/moe.py",
                  "kernels/flash_attention.py",
                  "kernels/wkv6.py", "launch/serve.py",
                  "runtime/failures.py", "runtime/chaos.py",

@@ -1,8 +1,9 @@
 """PyTorch port of the LLM prefill-and-serve path against the JAX package:
 configs, the param tree, ``CausalLM.prefill`` / ``decode_step`` and the
 greedy ``launch.serve.generate`` of llama3.2-1b (dense GQA), minicpm3-4b
-(MLA) and rwkv6-3b at reduced size, with the reference's params carried
-across key by key (``models.params_from_numpy``).
+(MLA), rwkv6-3b, deepseek-moe-16b (MoE with a dense prelude) and
+phi3.5-moe at reduced size, with the reference's params carried across
+key by key (``models.params_from_numpy``).
 
 Tolerances, relative to max |logit| of the reference's prefill:
 * float32: 1e-5.  The two frameworks sum in another order; measured up to
@@ -11,8 +12,20 @@ Tolerances, relative to max |logit| of the reference's prefill:
   fuses elementwise chains and rounds once, torch rounds after each op);
   measured up to 8e-3.
 * the port's own decode against its prefill: 2e-3, the reference's bound
-  (``tests/test_models.py:87``), in float32.
+  (``tests/test_models.py:87``), in float32; for MoE with capacity
+  dropping off (``capacity_factor=64``) 1e-4, the reference's bound
+  (``tests/test_models.py:90-94``): a prefill drops tokens past capacity,
+  a one-token decode step never does.
 Greedy tokens must be identical in float32.
+
+MoE routes are discrete.  Against the reference, the port's router runs
+on its own activations and its chosen experts are recorded; the values
+are then compared with the reference's routes replayed into the port, so
+a route that flips on a last-bit difference cannot hide the values of
+every later position.  In float32 every route must be the reference's;
+in bf16 (router logits rounded to bf16, as in the reference) a differing
+route must be a near-tie: its margin within ROUTE_ULPS bf16 ulps of the
+token's largest |logit|.
 """
 import contextlib
 import dataclasses
@@ -33,6 +46,7 @@ from repro.configs.base import param_count as j_count
 from repro.launch.serve import generate as j_generate
 from repro.models import build_model as j_build
 from repro.models import make_batch as j_make_batch
+from repro.models import moe as JMOE
 from repro_torch.configs import ARCHS, SHAPES, get_config
 from repro_torch.configs.base import (ShapeConfig, active_param_count,
                                       param_count)
@@ -41,9 +55,14 @@ from repro_torch.kernels import wkv6 as WK
 from repro_torch.launch import serve
 from repro_torch.models import (build_model, make_batch, params_from_numpy,
                                 params_to_numpy)
+from repro_torch.models import moe as TMOE
 
-ARCH_NAMES = ("llama3.2-1b", "minicpm3-4b", "rwkv6-3b")
+ARCH_NAMES = ("llama3.2-1b", "minicpm3-4b", "rwkv6-3b", "deepseek-moe-16b",
+              "phi3.5-moe-42b-a6.6b")
+MOE_NAMES = tuple(n for n in ARCH_NAMES if ARCHS[n].family == "moe")
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+DROP_FREE_TOL = 1e-4
+ROUTE_ULPS = 4
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -130,12 +149,67 @@ def test_params_and_batches_carry_across():
 
 # ------------------------------------------------------------------ forward
 
+def _replay_routes(monkeypatch):
+    """Record the reference's MoE routes as its ``moe_ffn`` runs (a debug
+    callback, in layer order) and replay them into the port's ``route``
+    calls in the same order.  Returns the port's calls as (its own
+    experts, its probabilities, the reference's experts)."""
+    ref, calls = [], []
+    j_ffn, t_route = JMOE.moe_ffn, TMOE.route
+
+    def j_wrap(cfg, p, x):
+        B, S, d = x.shape
+        xg = x.reshape(JMOE._n_groups(B * S), -1, d)
+        logits = (xg @ p["router"].astype(x.dtype)).astype(jnp.float32)
+        _, idx = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), cfg.top_k)
+        jax.debug.callback(lambda i: ref.append(np.asarray(i)), idx,
+                           ordered=True)
+        return j_ffn(cfg, p, x)
+
+    def t_wrap(cfg, p, xg):
+        probs, _, idx = t_route(cfg, p, xg)
+        jax.effects_barrier()
+        want = torch.tensor(ref[len(calls)], dtype=torch.int64)
+        calls.append((idx, probs, want))
+        gate = torch.gather(probs, -1, want)
+        return probs, gate / torch.clamp(gate.sum(-1, keepdim=True),
+                                         min=1e-9), want
+
+    monkeypatch.setattr(JMOE, "moe_ffn", j_wrap)
+    monkeypatch.setattr(TMOE, "route", t_wrap)
+    return calls
+
+
+def _route_flips(calls, dtype) -> int:
+    """(call, token) routes where the port's own experts differ from the
+    reference's: none in float32; in bf16 each a near-tie (see the module
+    docstring).  Returns their count."""
+    flips = 0
+    for own, probs, want in calls:
+        diff = (own.sort(-1).values != want.sort(-1).values).any(-1)
+        flips += int(diff.sum())
+        if not diff.any():
+            continue
+        assert dtype == "bfloat16", f"float32 routes differ: {diff.sum()}"
+        logp = torch.log(probs[diff])
+        margin = torch.gather(logp, -1, own[diff]).min(-1).values - \
+            torch.gather(logp, -1, want[diff]).min(-1).values
+        # the token's logits up to a shift: log p, shifted to max 0
+        ulp = 2.0 ** (torch.floor(torch.log2(
+            (logp - logp.max(-1, keepdim=True).values).abs().max(-1)
+            .values.clamp(min=1e-30))) - 7)
+        assert bool((margin <= ROUTE_ULPS * ulp).all()), (margin, ulp)
+    return flips
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", ARCH_NAMES)
-def test_prefill_and_decode_match_reference(name, dtype):
+def test_prefill_and_decode_match_reference(name, dtype, monkeypatch):
     """Prefill logits (a 37-token prompt for the attention families: two
     ragged attention blocks; 32 for rwkv: two WKV chunks) and 16 decode
-    steps from an empty cache against the reference."""
+    steps from an empty cache against the reference (MoE: with the
+    reference's routes replayed, every differing route a near-tie)."""
+    calls = _replay_routes(monkeypatch) if name in MOE_NAMES else None
     jm, jp, model, params = _pair(name, dtype)
     S = 32 if name.startswith("rwkv") else 37
     toks = _tokens(model.cfg, 2, S)
@@ -157,9 +231,14 @@ def test_prefill_and_decode_match_reference(name, dtype):
                                       {"tokens": torch.as_tensor(cur)}, t)
         derr = max(derr, float(np.abs(_np(pl) - _np(jl)).max()) / scale)
     assert derr <= TOL[dtype], derr
+    if calls is not None:   # prefill and 16 steps, every MoE layer
+        assert len(calls) == 17 * (model.cfg.n_layers -
+                                   model.cfg.first_dense)
+        _route_flips(calls, dtype)
 
 
-@pytest.mark.parametrize("name", ARCH_NAMES)
+@pytest.mark.parametrize("name", [n for n in ARCH_NAMES
+                                  if n not in MOE_NAMES])
 def test_decode_matches_own_prefill(name):
     """The port's 16 decode steps reproduce its own float32 prefill within
     the reference's bound (2e-3 of max |logit|)."""
@@ -175,6 +254,31 @@ def test_decode_matches_own_prefill(name):
     rel = float((torch.stack(outs, 1) - full).abs().max()) / \
         float(full.abs().max())
     assert rel < 2e-3, rel
+
+
+@pytest.mark.parametrize("name", MOE_NAMES)
+def test_moe_decode_matches_own_prefill_drop_free(name):
+    """With capacity dropping off (``capacity_factor=64``) the port's 16
+    MoE decode steps reproduce its own float32 prefill within 1e-4 of max
+    |logit| (the reference's bound), at the reduced and at the published
+    expert ratio (64 experts, top-6, 2 shared)."""
+    for over in ({}, {"n_experts": 64, "top_k": 6, "n_shared_experts": 2}):
+        cfg = dataclasses.replace(ARCHS[name].reduced(), dtype="float32",
+                                  capacity_factor=64.0, **over)
+        model = build_model(cfg, "cpu")
+        params = model.init(0)
+        toks = torch.as_tensor(_tokens(cfg, 2, 16, seed=2))
+        full = model.prefill(params, {"tokens": toks})
+        cache = model.init_cache(2, 16)
+        assert ("prelude" in cache) == bool(cfg.first_dense)
+        outs = []
+        for t in range(16):
+            logits, cache = model.decode_step(params, cache,
+                                              {"tokens": toks[:, t:t + 1]}, t)
+            outs.append(logits[:, 0])
+        rel = float((torch.stack(outs, 1) - full).abs().max()) / \
+            float(full.abs().max())
+        assert rel < DROP_FREE_TOL, (over, rel)
 
 
 @pytest.mark.parametrize("name", ARCH_NAMES)
@@ -216,7 +320,7 @@ def test_prefill_on_cpu_takes_the_plain_versions():
 
 def test_build_model_families_and_device():
     for name, cfg in ARCHS.items():
-        if cfg.family in ("dense", "mla", "rwkv"):
+        if cfg.family in ("dense", "mla", "moe", "rwkv"):
             assert build_model(cfg.reduced(), "cpu").device.type == "cpu"
         else:
             with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,6 +1,8 @@
 """PyTorch port of the LM training path against the JAX package:
 ``layers.cross_entropy`` / ``fused_head_cross_entropy``, ``CausalLM.loss``
-and its gradients (llama3.2-1b, minicpm3-4b and rwkv6-3b, reduced),
+and its gradients (llama3.2-1b, minicpm3-4b, rwkv6-3b, deepseek-moe-16b
+with its dense prelude and phi3.5-moe, reduced; the MoE loss with its
+load-balance term),
 per-layer remat, the kernels' training entries (``flash_attention_train``,
 ``wkv6_train``) and ``launch.train lm`` with its checkpoints, the
 reference's params and checkpoints carried across.
@@ -42,7 +44,8 @@ from repro_torch.launch import train
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.models import layers as L
 
-ARCH_NAMES = ("llama3.2-1b", "minicpm3-4b", "rwkv6-3b")
+ARCH_NAMES = ("llama3.2-1b", "minicpm3-4b", "rwkv6-3b", "deepseek-moe-16b",
+              "phi3.5-moe-42b-a6.6b")
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 SAME = 1e-6
@@ -325,5 +328,31 @@ def test_resumed_run_repeats_the_uninterrupted_one_bitwise(capsys, tmp_path):
     got, meta = ckpt.raw_leaves(ck, 6)
     assert meta["metadata"] == {"step": 6, "arch": "llama3.2-1b"}
     assert got.keys() == want.keys()
+    for path, a in want.items():     # params and Adam moments
+        np.testing.assert_array_equal(got[path], a, err_msg=path)
+
+
+def test_moe_run_with_prelude_resumes_bitwise(capsys, tmp_path):
+    """``train lm`` on deepseek-moe-16b (reduced): ``--n-layers 3`` is the
+    dense prelude and 2 MoE layers; its checkpoint holds ``prelude``
+    beside ``layers``, and a resumed run repeats the uninterrupted one
+    bitwise."""
+    argv = ["--arch", "deepseek-moe-16b", "--n-layers", "3", "--steps", "4",
+            "--batch", "2", "--seq", "32"]
+    ck_whole, ck = str(tmp_path / "whole"), str(tmp_path / "ck")
+    whole = _port_lm(capsys, *argv, "--ckpt-dir", ck_whole, "--ckpt-every",
+                     "4")
+    _port_lm(capsys, *argv[:-6], "--steps", "2", "--batch", "2", "--seq",
+             "32", "--ckpt-dir", ck, "--ckpt-every", "2")
+    rest = _port_lm(capsys, *argv, "--ckpt-dir", ck, "--ckpt-every", "2",
+                    "--resume")
+    assert whole["layers"] == 3 and rest["start"] == 2
+    assert rest["losses"] == whole["losses"][2:]
+    want, _ = ckpt.raw_leaves(ck_whole, 4)
+    got, _ = ckpt.raw_leaves(ck, 4)
+    assert got.keys() == want.keys()
+    assert want["['params']/['prelude']/['mlp']/['wi']"].shape == \
+        (1, 64, 10944)
+    assert want["['params']/['layers']/['experts']/['wi']"].shape[0] == 2
     for path, a in want.items():     # params and Adam moments
         np.testing.assert_array_equal(got[path], a, err_msg=path)

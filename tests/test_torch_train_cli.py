@@ -80,11 +80,12 @@ def test_inverse_heat_problem_on_the_us_map(capsys):
 def test_lm_is_not_ported_yet():
     """``lm`` on a family whose blocks are not ported yet raises."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        train.main(["lm", "--arch", "deepseek-moe-16b", "--reduced",
+        train.main(["lm", "--arch", "zamba2-1.2b", "--reduced",
                     "--device", "cpu"])
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "minicpm3-4b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "minicpm3-4b", "rwkv6-3b",
+                                  "deepseek-moe-16b"])
 def test_lm_runs_and_prints_its_json_line(capsys, arch):
     assert train.main(["lm", "--arch", arch, "--reduced", "--device", "cpu",
                        "--steps", "2", "--batch", "2", "--seq", "32",
