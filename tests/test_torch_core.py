@@ -21,6 +21,15 @@ from repro_torch.core import nets, pdes
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
+# JAX keeps one eager-dispatch callable per primitive and dtype.  If the
+# first eager float32 fill of a process runs inside a vmap (the reference's
+# stacked init makes its zeros there), that callable stays off the fast path
+# and every later eager jnp.ones/zeros retraces, which the reference's
+# CompileWatcher counts.  Making that first fill here, at collection, keeps
+# the reference's trace counts in this process independent of which test
+# file ran before them.
+jnp.zeros((1,), jnp.float32).block_until_ready()
+
 
 @pytest.mark.parametrize("name", sorted(jpdes.REGISTRY))
 def test_pde_bundle_interface_matches(name):
