@@ -132,7 +132,10 @@ any of them ends the run with a non-zero exit code and no result line:
    130, 1024}, (B, S, H, dh) layout; bf16 by TMA, v zero-padded inside the
    wrapper), under the same tolerances and counts; K5 at the MoE configs'
    prefill shapes (B 2, S = T = 1024: deepseek-moe-16b's H = Hk = 16 and
-   phi3.5-moe's 32/8, dh 128), both dtypes; and K6 (WKV6: a chunk,
+   phi3.5-moe's 32/8, dh 128), both dtypes; K5 at llava-next-mistral-7b's
+   prefill shape (B 1, S = T = 4096: 2304 patches and 1792 tokens; 32/8
+   heads of 128) and zamba2-1.2b's (B 2, S = T = 1024; its shared
+   attention's 32/32 heads of 64), both dtypes; and K6 (WKV6: a chunk,
    a scan and an output kernel) against its plain version run in float64
    on the same inputs (rtol = atol = 2e-4, the reference's bound; the
    float32 plain version's own distance from it is printed beside): P 16,
@@ -149,18 +152,24 @@ any of them ends the run with a non-zero exit code and no result line:
    unpadded v where SDPA takes it, else on v padded to 96); K5 at
    deepseek-moe-16b's (H = Hk = 16) and phi3.5-moe's (32/8) per-layer
    prefill shapes (B 1, S = T = 4096, dh 128, bf16, causal) beside the
-   same three; K6 at rwkv6-3b's
+   same three (llava-next-mistral-7b's shape is phi3.5-moe's); K5 at
+   zamba2-1.2b's shared attention (B 1, S = T = 4096, H = Hk = 32, dh 64)
+   beside the same three; K6 at rwkv6-3b's
    per-layer shape (B = 1, T = 4096, H = 40, P = 64, float32) beside its
    plain version;
-11. **llm** — llama3.2-1b, minicpm3-4b (MLA), rwkv6-3b and
+11. **llm** — llama3.2-1b, minicpm3-4b (MLA), rwkv6-3b,
    deepseek-moe-16b (MoE: the dense prelude and 27 MoE layers of 64
-   routed experts, top-6, and 2 shared) at their published width and
-   depth, and phi3.5-moe at full width and 4 of its 32 layers (LLM_LAYERS),
-   weights drawn from a seed on the card: prefill (B = 2, S = 1024 / B =
-   2, S = 1024 / B = 1, T = 1024 / B = 2, S = 1024 / B = 2, S = 1024)
-   through the kernels with the launch counts set to 0 just before and read
-   just after (exactly n_layers K5 (dense, MLA, MoE) or K6 (rwkv) wrapper
-   calls,
+   routed experts, top-6, and 2 shared), llava-next-mistral-7b (VLM: the
+   mistral backbone behind 2304 projected patch embeddings drawn from the
+   seed) and zamba2-1.2b (38 Mamba2 layers, the shared attention after
+   every 6) at their published width and depth, and phi3.5-moe at full
+   width and 4 of its 32 layers (LLM_LAYERS), weights drawn from a seed
+   on the card: prefill (B = 2, S = 1024 / B = 2, S = 1024 / B = 1, T =
+   1024 / B = 2, S = 1024 / B = 2, S = 1024 / B = 1, S = 2304 patches +
+   1792 tokens / B = 2, S = 1024) through the kernels with the launch
+   counts set to 0 just before and read just after (exactly n_layers K5
+   (dense, VLM, MLA, MoE) or K6 (rwkv) wrapper calls, n_layers // 6 = 6
+   for zamba2 (one a stage, ``_kernel_calls``),
    each on its device kernels: the bf16 K5 kernel, or K6's chunk, scan
    and output kernels; no plain version on a CUDA tensor), a profiler
    trace of it (the device kernels' share found by their names), the same
@@ -171,8 +180,10 @@ any of them ends the run with a non-zero exit code and no result line:
    the kernel and plain passes are counted and printed, and where there are
    any the plain pass is run again on the kernel pass's routes, replayed,
    and held at the same bar), and 16 decode steps (minicpm3's
-   absorbed-latent decode) held against the float32 prefill (2e-3 of max
-   |logit|, the reference's bound); MoE decode drops no token while a
+   absorbed-latent decode; the VLM's decode takes tokens only, so it is
+   held against a tokens-only prefill) held against the float32 prefill
+   (2e-3 of max |logit|, the reference's bound); MoE decode drops no token
+   while a
    prefill drops those past capacity, so for MoE a B = 2, S = 64 prompt at
    capacity_factor 64 is prefilled and its first 16 tokens decoded, within
    1e-4 (the reference's drop-free bound);
@@ -204,7 +215,13 @@ any of them ends the run with a non-zero exit code and no result line:
    and 4 of its 28 layers (the dense prelude and 3 MoE layers), B = 2, S =
    1024, 20 steps, counted as (a), its mean load-balance term printed,
    through (c) (routes that differ counted, and replayed where any do, as
-   in phase 11) and (d) as well; (g) ms
+   in phase 11) and (d) as well, and llava-next-mistral-7b at full width
+   and 8 of its 32 layers, B = 1, S = 2304 patches + 1792 tokens, and
+   zamba2-1.2b at its published size, B = 4, S = 1024, through the SSD at
+   its chunk of 256, 20 steps each, counted as (a) (zamba2: steps x 6 K5
+   launches and steps x 6 recomputes, its shared attention running once a
+   stage outside remat), through (c) ((c) gives the VLM 1024 tokens
+   behind its patches) and (d); (g) ms
    per step (median of the steps after the first two), tokens/s and
    ``torch.cuda.max_memory_allocated`` of (a) and (f), and torch.profiler
    over three steps of each (the last three of (e)):
@@ -215,8 +232,8 @@ any of them ends the run with a non-zero exit code and no result line:
    their plain versions, SDPA and the training entry's forward and
    backward;
 14. **report** — one ``{"kernels": [...]}`` line (K1-K6; K5 and K6 also
-   at the training shapes, K5 also at minicpm3's MLA shape and the MoE
-   configs' shapes), the card's name
+   at the training shapes, K5 also at minicpm3's MLA shape, the MoE
+   configs' shapes and the VLM's and zamba2's paths), the card's name
    and power limit from ``nvidia-smi``, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Each phase prints its seconds.
@@ -231,6 +248,13 @@ outside the tensor cores; K5 its 2 (dh + dv) FLOP per visible (query,
 key) pair and head (4 dh where dv = dh; MLA's padded v columns are not
 work the function needs) over 989 TFLOP/s, the bf16 tensor-core rate,
 since it takes and returns bf16 at the timed shapes.
+
+Every profiled window opens with PROFILE_PAD spin kernels of about a
+microsecond: a torch.profiler session drops the first device records it
+would collect, more the later in the process it starts (~46 late in a
+whole run on the H100), and the pad takes that loss (printed per window
+as ``pad_records_lost``) so that the counts of the K5 / K6 kernels in a
+trace are whole.
 
 The script imports nothing of the JAX package.  Without a CUDA card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -278,6 +302,14 @@ TRAIN_KERNELS = {"k3": "pinn_mlp_fwd_kernel", "k4": "pinn_mlp_bwd_kernel",
                  "k4_reduce": "pinn_mlp_bwd_reduce"}
 # the trainers' record_function scopes (the reference's named scopes)
 SCOPES = ("dd-comp-forward", "dd-comm-halo", "dd-comp-update")
+# a profiler session drops the first device records it would collect, more
+# the longer the process has run (up to ~55 late in a whole run on the
+# H100): every profiled window opens with PROFILE_PAD spin kernels
+# (``torch.cuda._sleep`` of PAD_CYCLES cycles each, ~1 us) to take that
+# loss; their records are counted apart
+PAD_KERNEL = "spin_kernel"
+PROFILE_PAD = 256
+PAD_CYCLES = 2000
 # the LM training step's scopes: the K5 / K6 training entries' VJP
 # recomputes, the fused head cross-entropy's chunks (forward and
 # backward) and the Adam update
@@ -303,16 +335,24 @@ WKV_TOL = 2e-4
 # package to 4e-7 on the CPU)
 LLM_F32_TOL = 1e-4
 DECODE_TOL = 2e-3        # decode vs prefill, the reference's bound
+# prefill (B, S); the VLM's S counts its 2304 patches and 1792 tokens
+# (prefill_32k cut to 4096: the patches alone fill 2304 positions)
 LLM = {"llama3.2-1b": (2, 1024), "minicpm3-4b": (2, 1024),
        "rwkv6-3b": (1, 1024), "deepseek-moe-16b": (2, 1024),
-       "phi3.5-moe-42b-a6.6b": (2, 1024)}                    # prefill (B, S)
+       "phi3.5-moe-42b-a6.6b": (2, 1024),
+       "llava-next-mistral-7b": (1, 4096), "zamba2-1.2b": (2, 1024)}
 # depth cuts of the llm phase (the others run at full depth and are also
 # served): phi3.5-moe's 41.9 B float32 params (168 GB) do not fit the card,
 # 4 of its 32 layers (5.5 B, 22 GB) do
 LLM_LAYERS = {"phi3.5-moe-42b-a6.6b": 4}
-# the kernel wrapper each family's full causal forward calls once a layer
+# the kernel wrapper each family's full causal forward calls (once a
+# layer; the hybrid's shared attention once a stage, ``_kernel_calls``)
 FAMILY_KERNEL = {"dense": "flash_attention", "mla": "flash_attention",
-                 "moe": "flash_attention", "rwkv": "wkv6"}
+                 "moe": "flash_attention", "rwkv": "wkv6",
+                 "vlm": "flash_attention", "hybrid": "flash_attention"}
+# the configs whose K5 shapes this slice added: the VLM's (32/8 heads of
+# 128) and zamba2-1.2b's shared attention (32/32 heads of 64)
+K5_PATHS = ("llava-next-mistral-7b", "zamba2-1.2b")
 # the MoE configs' attention heads (H, Hk, dh): K5's shapes on their path
 MOE_HEADS = {"deepseek-moe-16b": (16, 16, 128),
              "phi3.5-moe-42b-a6.6b": (32, 8, 128)}
@@ -334,7 +374,11 @@ MLA_HEADS = (40, 96, 64)   # (H = Hk, dh, dv)
 # params): with an out-of-place Adam the step's peak holds seven float32
 # copies of the params, 86 GB at 3.06 B params and 120 GB at 4.3 B, more
 # than the card's 80 GB (minicpm3 at 16 layers peaked at 45.7 GB, so 24
-# layers, ~60 GB, still leave room; deepseek at 4 layers ~63 GB)
+# layers, ~60 GB, still leave room; deepseek at 4 layers ~63 GB);
+# llava-next-mistral-7b at full width and 8 of its 32 layers (218 M params
+# a layer, 2.01 B in all: ~56 GB at seven copies), B 1 x 4096 (2304
+# patches + 1792 tokens); zamba2-1.2b at its published size (1.2 B, ~34
+# GB), B 4 x 1024, through the SSD at its chunk of 256
 LM_TRAIN = {"llama3.2-1b": {"batch": 4, "seq": 1024, "steps": 30,
                             "layers": None, "resume": True},
             "rwkv6-3b": {"batch": 1, "seq": 1024, "steps": 20,
@@ -342,7 +386,11 @@ LM_TRAIN = {"llama3.2-1b": {"batch": 4, "seq": 1024, "steps": 30,
             "minicpm3-4b": {"batch": 2, "seq": 1024, "steps": 20,
                             "layers": 24, "resume": False},
             "deepseek-moe-16b": {"batch": 2, "seq": 1024, "steps": 20,
-                                 "layers": 4, "resume": False}}
+                                 "layers": 4, "resume": False},
+            "llava-next-mistral-7b": {"batch": 1, "seq": 4096, "steps": 20,
+                                      "layers": 8, "resume": False},
+            "zamba2-1.2b": {"batch": 4, "seq": 1024, "steps": 20,
+                            "layers": None, "resume": False}}
 LM_CKPT_EVERY = 15
 # one loss and its gradient, kernel path against plain path in float32:
 # the loss relative, each gradient leaf scaled by max(1, max |want|)
@@ -2148,6 +2196,7 @@ def lm_sweep(dev) -> dict:
     """K5 and K6 against their plain versions on the card, each case
     counted on the device kernels it must launch."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import wkv6 as WK
 
@@ -2211,8 +2260,21 @@ def lm_sweep(dev) -> dict:
                       False, dev), True, dname)
             n_moe += 1
         print(f"K5 MoE H{H}/{Hk} dh{dh} S=T=1024 causal ok")
-    emit({"k5_sweep_cases": n_fa + n_mla + n_moe, "k5_mla_cases": n_mla,
-          "k5_moe_cases": n_moe, "tol": FA_TOL, "max_abs_err": dict(worst)})
+    # the VLM's and zamba2's prefill shapes (LLM's B x S)
+    n_path = 0
+    for name in K5_PATHS:
+        cfg = get_config(name)
+        B, S = LLM[name]
+        H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        for dname in ("float32", "bfloat16"):
+            one(*_qkv(gen, B, S, S, H, Hk, dh, getattr(torch, dname), False,
+                      dev), True, dname)
+            n_path += 1
+        print(f"K5 {name} B{B} H{H}/{Hk} dh{dh} S=T={S} causal ok")
+    emit({"k5_sweep_cases": n_fa + n_mla + n_moe + n_path,
+          "k5_mla_cases": n_mla, "k5_moe_cases": n_moe,
+          "k5_vlm_hybrid_cases": n_path, "tol": FA_TOL,
+          "max_abs_err": dict(worst)})
 
     # K6's plain version in float64 on the same (cast) inputs: the
     # float32 plain version at a long chunk is itself off the recurrence at
@@ -2290,10 +2352,12 @@ def _sdpa(q, k, v):
 
 
 def lm_timing(dev) -> dict:
-    """K5 at llama3.2-1b's per-layer prefill shape (4096 and 32768 tokens)
-    and K6 at rwkv6-3b's (4096 steps): device ms of the kernel (CUDA graph of
+    """K5 at llama3.2-1b's per-layer prefill shape (4096 and 32768 tokens),
+    at minicpm3-4b's, the MoE configs' and zamba2-1.2b's (4096 tokens), and
+    K6 at rwkv6-3b's (4096 steps): device ms of the kernel (CUDA graph of
     launches), its plain version, and for K5 PyTorch's SDPA."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import wkv6 as WK
 
@@ -2370,6 +2434,29 @@ def lm_timing(dev) -> dict:
         emit({"timing": row})
         del q, k, v
         torch.cuda.empty_cache()
+    # zamba2-1.2b's shared attention (H = Hk = 32, dh 64; llava's 32/8 of
+    # 128 is phi3.5-moe's shape, timed above)
+    cfg = get_config("zamba2-1.2b")
+    B, S, H, dh = 1, 4096, cfg.n_heads, cfg.hd
+    q, k, v = _qkv(gen, B, S, S, H, H, dh, torch.bfloat16, False, dev)
+    kern = lambda: FA.flash_attention(q, k, v, causal=True)
+    lib = lambda: _sdpa(q, k, v)
+    sdpa_err = float((lib().float() - kern().float()).abs().max())
+    bms, by, nbytes, flops = fa_bound(B, S, H, H, dh)
+    row = {"kernel": "flash_attention",
+           "shape": f"B={B} S=T={S} H={H} Hk={H} dh={dh} bf16 causal"
+                    " (zamba2-1.2b)",
+           "ms": _graph_ms(kern, 20),
+           "plain_ms": _events_ms(lambda: FA.flash_attention_plain(
+               q, k, v, causal=True), 3),
+           "library_ms": _graph_ms(lib, 20), "bound_ms": bms,
+           "bound_by": by, "bytes": nbytes, "flops": flops,
+           "sdpa_max_abs_diff": sdpa_err}
+    row["tflops"] = flops / row["ms"] * 1e-9
+    out[("flash_attention_hybrid", cfg.name)] = row
+    emit({"timing": row})
+    del q, k, v
+    torch.cuda.empty_cache()
     B, T, H, P = 1, 4096, 40, 64
     args = _rkvwu(gen, B, T, H, P, "near1", dev)
     bms, by, nbytes, flops = wkv_bound(B, T, H, P)
@@ -2407,16 +2494,22 @@ def _device_split(fn, kernels=None, scopes=()) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):   # takes the session's record loss
+            torch.cuda._sleep(PAD_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = 0.0
+    busy, pad = 0.0, 0
     kern = dict.fromkeys(kernels, 0.0)
     count = dict.fromkeys(kernels, 0)
     top = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
+            continue
+        if re.search(rf"\b{PAD_KERNEL}\b", ev.key):
+            pad += ev.count
             continue
         # a record_function scope is also a device-side annotation whose
         # span covers the kernels inside it: it is not work of its own
@@ -2441,7 +2534,8 @@ def _device_split(fn, kernels=None, scopes=()) -> dict:
             "kernel_ms": kern, "kernel_count": count, "scope_ms": scope_ms,
             "device_events": sum(n for _, n, _ in top),
             "top": [[round(t, 3), n, k] for t, n, k in top[:8]],
-            "profiled_wall_ms": wall}
+            "profiled_wall_ms": wall,
+            "pad_records_lost": PROFILE_PAD - pad}
 
 
 @contextlib.contextmanager
@@ -2508,14 +2602,25 @@ def _drop_free_decode(cfg, params, tokens, dev) -> float:
     return float(diff) / float(full.abs().max())
 
 
+def _kernel_calls(model) -> tuple[int, int, int]:
+    """K5 / K6 wrapper calls of one full forward of ``model`` (a prefill),
+    and of one training step: the forward's launches (under remat a
+    layer's forward runs again in the backward) and the VJP recomputes.
+    One a layer; the hybrid's shared attention runs once a stage, outside
+    remat (``model.attn_calls`` / ``attn_remat``)."""
+    n = model.attn_calls
+    return n, n * (1 + int(model.attn_remat)), n
+
+
 def llm_phase(dev) -> dict:
-    """The published llama3.2-1b, minicpm3-4b, rwkv6-3b and
-    deepseek-moe-16b, and phi3.5-moe at 4 of its 32 layers, on the card:
-    prefill through the kernels (counted), its trace, the plain versions in
-    bf16 and float32 (MoE: the routes that differ counted, the values held
-    on the kernel pass's routes), and decode against prefill (MoE: drop
-    free).  Returns the launches of the counted prefills, summed over the
-    models and by model."""
+    """The published llama3.2-1b, minicpm3-4b, rwkv6-3b, deepseek-moe-16b,
+    llava-next-mistral-7b and zamba2-1.2b, and phi3.5-moe at 4 of its 32
+    layers, on the card: prefill through the kernels (counted; the VLM with
+    its patches), its trace, the plain versions in bf16 and float32 (MoE:
+    the routes that differ counted, the values held on the kernel pass's
+    routes), and decode against prefill (MoE: drop free; the VLM on a
+    tokens-only prompt).  Returns the launches of the counted prefills,
+    summed over the models and by model."""
     import dataclasses
 
     import torch
@@ -2532,10 +2637,16 @@ def llm_phase(dev) -> dict:
         model = build_model(cfg, dev)
         params = model.init(SEED)
         gen = torch.Generator(device=dev).manual_seed(SEED + 6)
-        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+        n_pat = cfg.n_patches if cfg.family == "vlm" else 0
+        tokens = torch.randint(0, cfg.vocab, (B, S - n_pat), generator=gen,
                                device=dev)
         batch = {"tokens": tokens}
+        if n_pat:   # the stub frontend's patch embeddings, from the seed
+            batch["patch_embeds"] = torch.randn(
+                (B, n_pat, cfg.patch_dim), generator=gen,
+                device=dev).to(getattr(torch, cfg.dtype))
         kname = FAMILY_KERNEL[cfg.family]
+        calls = _kernel_calls(model)[0]
         model.prefill(params, batch)          # warm-up (cuBLAS, the build)
         torch.cuda.synchronize()
         for m in (FA, WK):
@@ -2546,12 +2657,12 @@ def llm_phase(dev) -> dict:
         secs = time.perf_counter() - t0
         counts = {**FA.launches, **WK.launches}
         plain = {**FA.plain_calls, **WK.plain_calls}
-        # one wrapper call per layer, each on the bf16 K5 kernel or on
-        # K6's chunk, scan and output kernels, and nothing else
+        # one wrapper call per layer (the hybrid: per stage), each on the
+        # bf16 K5 kernel or on K6's chunk, scan and output kernels, and
+        # nothing else
         device = (("flash_attention_sm90",) if kname == "flash_attention"
                   else ("wkv6_chunk", "wkv6_scan", "wkv6_out"))
-        expect = {n: cfg.n_layers if n in (kname, *device) else 0
-                  for n in counts}
+        expect = {n: calls if n in (kname, *device) else 0 for n in counts}
         check(counts == expect, f"{name}: launches {counts}, want {expect}")
         check(not any(plain.values()), f"plain versions on CUDA: {plain}")
         check(tuple(logits.shape) == (B, S, cfg.padded_vocab),
@@ -2576,7 +2687,7 @@ def llm_phase(dev) -> dict:
         with _moe_routes() as k_routes:
             got = m32.prefill(params, batch)
         check(kname != "flash_attention" or
-              FA.launches["flash_attention_f32"] == cfg.n_layers,
+              FA.launches["flash_attention_f32"] == calls,
               f"{name}: float32 prefill launches {FA.launches}")
         with _moe_routes() as p_routes:
             want = m32.prefill(params, batch, plain=True)
@@ -2610,6 +2721,10 @@ def llm_phase(dev) -> dict:
             dec_rel, dec_tol = _drop_free_decode(cfg, params, tokens,
                                                  dev), DROP_FREE_TOL
         else:
+            if n_pat:   # decode takes tokens only: a tokens-only prefill
+                del got
+                got = m32.prefill(params, {"tokens": tokens})
+                scale = float(got[..., :cfg.vocab].abs().max())
             cache = m32.init_cache(B, 16)
             dec = []
             for t in range(16):
@@ -2623,7 +2738,8 @@ def llm_phase(dev) -> dict:
         check(dec_rel <= dec_tol, f"{name}: decode vs prefill "
                                   f"{dec_rel:.3e}")
         emit({"llm": {
-            "arch": name, "batch": B, "seq": S, "layers": cfg.n_layers,
+            "arch": name, "batch": B, "seq": S, "patches": n_pat,
+            "layers": cfg.n_layers,
             "d_model": cfg.d_model, "prefill_s": secs,
             "prefill_tokens_per_s": B * S / secs, "launches": counts,
             "plain_calls_on_cuda": plain, "bf16_kernel_vs_plain_rel": bf16_rel,
@@ -2719,15 +2835,19 @@ def _reset_lm_counts() -> None:
     WK.reset_launch_counts()
 
 
-def _check_lm_counts(name, family, steps, layers, remat) -> dict:
+def _check_lm_counts(name, cfg, steps) -> dict:
     """Exactly steps x layers x (1 + remat) wrapper launches of K5 (on the
     bf16 kernel) or K6 (on its chunk, scan and output kernels) and steps x
-    layers VJP recomputes; nothing else, no plain version on the card."""
+    layers VJP recomputes (the hybrid: steps x stages of each,
+    ``_kernel_calls``); nothing else, no plain version on the card."""
+    from repro_torch.models import build_model
+
     counts = _lm_counts()
-    n, fwd = steps * layers, steps * layers * (1 + int(remat))
+    _, fwd, n = _kernel_calls(build_model(cfg, "cuda"))
+    fwd, n = steps * fwd, steps * n
     want = ({"flash_attention": fwd, "flash_attention_sm90": fwd,
              "flash_attention_vjp": n}
-            if FAMILY_KERNEL[family] == "flash_attention" else
+            if FAMILY_KERNEL[cfg.family] == "flash_attention" else
             {"wkv6": fwd, "wkv6_chunk": fwd, "wkv6_scan": fwd,
              "wkv6_out": fwd, "wkv6_vjp": n})
     want = {k: want.get(k, 0) for k in counts}
@@ -2926,8 +3046,7 @@ def lm_train_phase(dev) -> dict:
                 run = _train_lm(argv + (["--ckpt-dir", a_dir]
                                         if cell["resume"] else []))
             secs = time.perf_counter() - t0
-            counts = _check_lm_counts(name, cfg.family, cell["steps"],
-                                      cfg.n_layers, cfg.remat)
+            counts = _check_lm_counts(name, cfg, cell["steps"])
             for k, v in counts.items():
                 if k in ("flash_attention", "wkv6"):
                     launches[k] = launches.get(k, 0) + v
@@ -2960,8 +3079,7 @@ def lm_train_phase(dev) -> dict:
                 again = _train_lm(argv + ["--ckpt-dir", b_dir, "--resume"])
                 row["resume_seconds"] = time.perf_counter() - t0
                 rest = cell["steps"] - LM_CKPT_EVERY
-                _check_lm_counts(name, cfg.family, rest, cfg.n_layers,
-                                 cfg.remat)
+                _check_lm_counts(name, cfg, rest)
                 check(again["start"] == LM_CKPT_EVERY and
                       again["losses"] == losses[LM_CKPT_EVERY:],
                       f"{name}: resumed losses {again['losses']} != "
@@ -2982,15 +3100,17 @@ def lm_train_phase(dev) -> dict:
             res[name] = row
 
         # (c) kernel path against plain path, one loss and its gradient
+        # (1024 tokens; the VLM's patches in front of them)
         t_part = time.perf_counter()
         for name in LM_TRAIN:
             cfg = _lm_cfg(name)
             params = build_model(cfg, dev).init(SEED + 1)
-            shape = ShapeConfig("c", 1024, 1, "train")
+            seq = 1024 + (cfg.n_patches if cfg.family == "vlm" else 0)
+            shape = ShapeConfig("c", seq, 1, "train")
             batch = make_lm_batch(cfg, shape, "train", seed=SEED + 7,
                                   device=dev)
             row = {"arch": name, "layers": cfg.n_layers, "batch": 1,
-                   "seq": 1024}
+                   "seq": seq}
             for dtype in ("float32", "bfloat16"):
                 model = build_model(dataclasses.replace(cfg, dtype=dtype),
                                     dev)
@@ -3012,7 +3132,7 @@ def lm_train_phase(dev) -> dict:
                             lp, gp = _lm_grads(model, params, batch, True)
                 del k_routes, p_routes
                 after = _lm_counts()
-                fwd = cfg.n_layers * (1 + int(cfg.remat))
+                fwd = _kernel_calls(model)[1]
                 # the plain path adds plain calls, no kernel launch
                 check(kern[kname] == fwd and after[kname] == fwd,
                       f"{name} {dtype}: kernel path {kern}, then {after}")
@@ -3093,7 +3213,8 @@ def lm_train_phase(dev) -> dict:
             losses += split["losses"]
             dev_kernel = "flash_attention_sm90" if kname == \
                 "flash_attention" else "wkv6_chunk"
-            want = 3 * cfg.n_layers * (1 + int(cfg.remat))
+            per_fwd, per_step, _ = _kernel_calls(model)
+            want = 3 * per_step
             check(split["kernel_count"][dev_kernel] == want ==
                   traced[dev_kernel],
                   f"{name}: traced {split['kernel_count']}, counted "
@@ -3101,7 +3222,7 @@ def lm_train_phase(dev) -> dict:
             row = {"arch": name, "trace_steps": 3, "profile": split,
                    "seconds": time.perf_counter() - t_part,
                    "remat_factor_traced":
-                   split["kernel_count"][dev_kernel] / (3 * cfg.n_layers)}
+                   split["kernel_count"][dev_kernel] / (3 * per_fwd)}
             if cell["resume"]:
                 row["learn"] = {"steps": total, "first_loss": losses[0],
                                 "final_loss": losses[-1],
@@ -3258,6 +3379,22 @@ def main(argv=None) -> int:
                            lm_train[arch]["launches"][name]}
                           if arch in lm_train else {})}
                 for arch in MOE_HEADS}
+            # the VLM's shape is phi3.5-moe's (32/8 heads of 128), timed
+            # there; zamba2's shared attention is timed at its own
+            timed = {"llava-next-mistral-7b": {
+                         "timed_as": "moe_shapes.phi3.5-moe-42b-a6.6b"},
+                     "zamba2-1.2b": {
+                         k: v for k, v in times[("flash_attention_hybrid",
+                                                 "zamba2-1.2b")].items()
+                         if k not in ("bytes", "flops")}}
+            kernels[-1]["vlm_hybrid_paths"] = {
+                arch: {**timed[arch],
+                       "prefill_launches": llm["by_arch"][arch][name],
+                       "lm_train_launches": lm_train[arch]["launches"][name],
+                       "lm_train_launches_per_step":
+                       lm_train[arch]["launches"][name]
+                       / lm_train[arch]["steps"]}
+                for arch in K5_PATHS}
     smi = _smi()
     if args.out:
         with open(args.out, "w") as f:

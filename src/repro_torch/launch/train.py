@@ -26,14 +26,17 @@ prints the backend, the ranks and each rank's device.  Unlike the
 reference, it never falls back to the single-process trainer.  The
 residual path is the reference's ``DDConfig`` default (``jvp``).
 
-``lm`` trains a ported family (dense, mla, rwkv) on the synthetic token
-pipeline with the reference's recipe: each step a fresh batch
+``lm`` trains a ported family (dense, vlm, mla, moe, rwkv, hybrid) on the
+synthetic token pipeline with the reference's recipe: each step a fresh batch
 (``make_batch(..., seed=seed * 100003 + step)``), ``CausalLM.loss`` and its
 gradient (per-layer remat, the chunked fused head cross-entropy; on the
-card K5 or K6 in every layer's forward), the global norm clipped to 1.0,
+card K5 or K6 in every layer's forward, K5 once a stage in zamba2's
+shared attention), the global norm clipped to 1.0,
 ``warmup_cosine(warmup=20)`` and Adam.  ``--reduced`` and ``--preset
 100m`` are the reference's configs; ``--n-layers`` cuts the depth (the
-card holds seven float32 copies of the params at the step's peak).  It
+card holds seven float32 copies of the params at the step's peak).  For
+the VLM ``--seq`` counts its patches and its tokens, as the reference's
+batch does, so it must exceed the config's ``n_patches``.  It
 checkpoints ``{"params", "opt"}`` with ``{"step", "arch"}`` every
 ``--ckpt-every`` steps in the reference's layout (either package resumes
 the other's) and resumes with ``--resume``; a resumed run repeats the

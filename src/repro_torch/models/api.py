@@ -2,8 +2,10 @@
 
 Counterpart of the reference package's ``models/api.py``.
 ``build_model(cfg, device)`` returns the family's model object;
-``make_batch`` builds the same token arrays as the reference for the same
-seed (numpy ``default_rng``); ``params_from_numpy`` / ``params_to_numpy``
+``make_batch`` builds the same arrays as the reference for the same seed
+(numpy ``default_rng``: integer tokens, and the VLM's ``patch_embeds`` or
+the encoder-decoder's ``frames`` as standard normal draws in the config's
+dtype, drawn in key order); ``params_from_numpy`` / ``params_to_numpy``
 (``core.nets``'s) carry a param tree between the two packages key by key
 (``jax.tree.map(np.asarray, params)`` on the reference's side), keeping the
 stacked leading L axis and the float32 master weights.
@@ -20,35 +22,56 @@ from repro_torch.models import mla as _mla      # noqa: F401
 from repro_torch.models import moe as _moe      # noqa: F401
 from repro_torch.models import ssm as _ssm      # noqa: F401
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models.causal_lm import CausalLM
+from repro_torch.models.causal_lm import CausalLM, _dtype
+from repro_torch.models.zamba import Zamba2Model
 
 
 def build_model(cfg: ModelConfig, device=None) -> CausalLM:
     """The model of ``cfg`` on ``device`` (``cuda`` unless given).  The
-    families ported are ``dense``, ``mla``, ``moe`` and ``rwkv``; the others
-    (``vlm``, ``hybrid``, ``encdec``) raise ``NotImplementedError``."""
+    families ported are ``dense``, ``vlm``, ``mla``, ``moe``, ``rwkv`` and
+    ``hybrid`` (:class:`Zamba2Model`); ``encdec`` raises
+    ``NotImplementedError``."""
+    if cfg.family == "hybrid":
+        return Zamba2Model(cfg, device)
     return CausalLM(cfg, device)
 
 
 def _token_shapes(cfg: ModelConfig, shape: ShapeConfig, kind: str):
+    """name -> (shape, dtype) for the given entry point; the VLM's
+    ``seq_len`` counts its patches and its tokens."""
     B, S = shape.global_batch, shape.seq_len
-    if kind == "train":
-        return {"tokens": (B, S), "labels": (B, S)}
-    if kind == "prefill":
-        return {"tokens": (B, S)}
+    t, f = torch.int64, _dtype(cfg)
     if kind == "decode":
-        return {"tokens": (B, 1)}
-    raise ValueError(kind)
+        return {"tokens": ((B, 1), t)}
+    if kind not in ("train", "prefill"):
+        raise ValueError(kind)
+    n_tok = S
+    if cfg.family == "vlm":
+        n_tok = S - cfg.n_patches
+        if n_tok <= 0:
+            raise ValueError(
+                f"{cfg.name}: seq_len {S} leaves no text tokens after its "
+                f"{cfg.n_patches} patches (seq_len counts both)")
+    out = {"tokens": ((B, n_tok), t)}
+    if kind == "train":
+        out["labels"] = ((B, n_tok), t)
+    if cfg.family == "vlm":
+        out["patch_embeds"] = ((B, cfg.n_patches, cfg.patch_dim), f)
+    if cfg.family == "encdec":
+        out["frames"] = ((B, max(1, S // cfg.enc_ratio), cfg.d_model), f)
+    return out
 
 
 def make_batch(cfg: ModelConfig, shape: ShapeConfig, kind: str | None = None,
                seed: int = 0, device=None) -> dict:
-    """Deterministic synthetic batch: the reference's token values for the
-    same seed, as int64 tensors on ``device`` (default: the CPU)."""
+    """Deterministic synthetic batch: the reference's values for the same
+    seed, tokens as int64 tensors, float inputs in ``cfg.dtype``, on
+    ``device`` (default: the CPU)."""
     kind = kind or shape.kind
     rng = np.random.default_rng(seed)
-    return {k: torch.as_tensor(rng.integers(0, cfg.vocab, size=s),
-                               dtype=torch.int64, device=device)
-            for k, s in _token_shapes(cfg, shape, kind).items()}
-
-
+    out = {}
+    for k, (s, d) in _token_shapes(cfg, shape, kind).items():
+        a = rng.integers(0, cfg.vocab, size=s) if d == torch.int64 \
+            else rng.normal(0, 1, size=s)
+        out[k] = torch.as_tensor(a, dtype=d, device=device)
+    return out

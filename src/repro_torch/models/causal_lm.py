@@ -18,11 +18,17 @@ its params and caches then hold ``prelude`` beside ``layers``.  ``loss``
 adds the MoE load-balance term, ``0.01 *`` the mean of the layers'
 ``ys["aux"]``.
 
+The VLM family (llava-next-mistral-7b) is the dense block with a stub
+frontend: a batch's precomputed ``patch_embeds`` (B, P, patch_dim) are
+projected by ``vis_proj`` and prepended to the token embeddings, so the
+layers (and K5) see one causal sequence of P + S positions; ``loss`` drops
+the patch positions before the head.  Decode takes tokens only, as in the
+reference.  The Zamba2 hybrid is a subclass (``models/zamba.py``).
+
 The model lives on one device, ``cuda`` unless the caller asks for the CPU
 (``build_model(cfg, device="cpu")``); its params and caches are made there.
-Not ported yet (ROADMAP Queue 1): the ``logical`` / ``*_specs`` sharding
-trees and the VLM patch frontend, with the patch slice of ``loss`` that
-only the VLM reaches.
+The reference's ``logical`` / ``*_specs`` sharding trees have no
+counterpart (one card).
 """
 from __future__ import annotations
 
@@ -67,6 +73,10 @@ class CausalLM:
         # leading dense layers outside the homogeneous stack (deepseek-moe)
         self.prelude = BLOCKS["dense"] if cfg.first_dense else None
         self._n_main = cfg.n_layers - cfg.first_dense
+        # calls of the sequence mixer's kernel (K5, or K6 for RWKV) in one
+        # full forward, and whether remat runs them again in the backward
+        self.attn_calls = cfg.n_layers
+        self.attn_remat = bool(cfg.remat)
         self.device = resolve_device(device)
 
     def _prelude_cfg(self) -> ModelConfig:
@@ -98,6 +108,11 @@ class CausalLM:
                                         g, cfg.first_dense)
         if not cfg.tie_embeddings:
             p["head"] = L.init_lm_head(g, cfg.d_model, cfg.padded_vocab)
+        if cfg.family == "vlm":
+            p["vis_proj"] = {
+                "w": L.normal_init(g, (cfg.patch_dim, cfg.d_model)),
+                "b": L.zeros(g, (cfg.d_model,)),
+            }
         return p
 
     # ------------------------------------------------------------------- cache
@@ -119,6 +134,16 @@ class CausalLM:
         return {"prelude": pre, "layers": main}
 
     # ----------------------------------------------------------------- forward
+    def _embed_inputs(self, params, batch, dtype):
+        """Token embeddings, with the VLM's projected patches in front."""
+        x = L.embed(params["embed"], batch["tokens"], dtype)
+        if self.cfg.family == "vlm" and "patch_embeds" in batch:
+            vp = params["vis_proj"]
+            pe = batch["patch_embeds"].to(dtype) @ vp["w"].to(dtype) \
+                + vp["b"].to(dtype)
+            x = torch.cat([pe, x], dim=1)
+        return x
+
     def _hidden(self, params, batch, cache=None, pos=None, plain=False):
         """Backbone up to (and including) the final norm. Returns (x,
         new_cache | ys): without a cache, the main layers' stacked outputs
@@ -127,8 +152,7 @@ class CausalLM:
         The layers run under ``cfg.remat`` / ``cfg.remat_policy`` as in the
         reference; remat acts only where grad is enabled (``loss``)."""
         cfg = self.cfg
-        dtype = _dtype(cfg)
-        x = L.embed(params["embed"], batch["tokens"], dtype)
+        x = self._embed_inputs(params, batch, _dtype(cfg))
         B, S = x.shape[:2]
         if pos is None:
             positions = torch.arange(S, device=x.device)[None, :]
@@ -161,7 +185,7 @@ class CausalLM:
         return x, new_main
 
     def forward(self, params, batch, cache=None, pos=None, *, plain=False):
-        """batch: {"tokens": (B, S)}.
+        """batch: {"tokens": (B, S) [, "patch_embeds": (B, P, patch_dim)]}.
 
         cache/pos given  -> decode mode (S == 1), returns (logits, new_cache)
         cache/pos absent -> full causal forward, returns (logits, None)
@@ -189,12 +213,13 @@ class CausalLM:
         (the full float32 logits are never materialized).  batch: tokens and
         labels (B, S), optionally ``loss_mask``.  Differentiable in
         ``params``; ``plain=True`` as in :meth:`forward`.  MoE models add
-        ``0.01 *`` the mean load-balance term of their layers.
-
-        The reference also slices off the VLM's patch positions; that
-        family is not ported yet."""
+        ``0.01 *`` the mean load-balance term of their layers.  The VLM's
+        patch positions carry no next-token targets: they are dropped
+        before the head."""
         cfg = self.cfg
         x, ys = self._hidden(params, batch, plain=plain)
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            x = x[:, batch["patch_embeds"].shape[1]:]
         w, tied = self._head_weight(params)
         loss = L.fused_head_cross_entropy(
             x, w, batch["labels"], batch.get("loss_mask"), transpose_w=tied,

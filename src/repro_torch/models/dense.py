@@ -1,12 +1,13 @@
-"""Dense GQA transformer block (llama3.2-1b, yi-34b, qwen2.5-14b; the dense
-prelude of deepseek-moe-16b).
+"""Dense GQA transformer block (llama3.2-1b, yi-34b, qwen2.5-14b; the
+mistral backbone of llava-next-mistral-7b; the dense prelude of
+deepseek-moe-16b; the shared attention block of zamba2-1.2b).
 
 Counterpart of the reference package's ``models/dense.py``.  In the full
 causal forward its attention is the flash-attention kernel (K5) on CUDA
 tensors and the kernel's plain version on the CPU
 (``layers.chunked_attention``); decode attends over the cache in plain
-torch.  The reference also registers this block for the VLM family, whose
-patch frontend is not ported yet (ROADMAP Queue 1).
+torch.  Registered for the ``dense`` and ``vlm`` families, as in the
+reference (the VLM's patch frontend is ``CausalLM._embed_inputs``).
 """
 from __future__ import annotations
 
@@ -48,3 +49,4 @@ def init_cache(cfg: ModelConfig, B, T, dtype, device):
 
 BLOCK = BlockDef(init=init, apply=apply, init_cache=init_cache)
 register_block("dense", BLOCK)
+register_block("vlm", BLOCK)

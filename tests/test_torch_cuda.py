@@ -614,12 +614,14 @@ def test_wkv6_refuses_what_it_does_not_take(dev):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "minicpm3-4b", "rwkv6-3b",
-                                  "deepseek-moe-16b"])
+                                  "deepseek-moe-16b", "llava-next-mistral-7b",
+                                  "zamba2-1.2b"])
 def test_reduced_prefill_on_card_runs_the_kernels(dev, arch):
     """The reduced model's prefill on the card launches K5 (or K6) once per
-    layer (deepseek-moe-16b: the dense prelude's and the MoE layer's),
-    runs no plain version on a CUDA tensor, and its float32 logits match
-    the plain path on the card within 1e-4 of max |logit|."""
+    layer (deepseek-moe-16b: the dense prelude's and the MoE layer's;
+    zamba2-1.2b: once per stage of its shared attention), runs no plain
+    version on a CUDA tensor, and its float32 logits match the plain path
+    on the card within 1e-4 of max |logit|."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -637,7 +639,7 @@ def test_reduced_prefill_on_card_runs_the_kernels(dev, arch):
     torch.cuda.synchronize()
     name, mod = (("wkv6", WK) if cfg.family == "rwkv"
                  else ("flash_attention", FA))
-    assert mod.launches[name] == cfg.n_layers
+    assert mod.launches[name] == model.attn_calls
     assert not any(FA.plain_calls.values()) and \
         not any(WK.plain_calls.values())
     want = model.prefill(params, batch, plain=True)
@@ -744,12 +746,14 @@ def test_wkv6_train_on_card(dev):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "minicpm3-4b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "minicpm3-4b", "rwkv6-3b",
+                                  "llava-next-mistral-7b", "zamba2-1.2b"])
 def test_reduced_training_step_on_card_counts_the_kernels(dev, arch):
     """One step of ``launch.train``'s recipe on the card with per-layer
     remat: exactly 2 x n_layers K5 (or K6) launches (the forward and its
-    recompute) and n_layers VJP recomputes, no plain version; the loss
-    equals the plain path's within 1e-5 (float32)."""
+    recompute) and n_layers VJP recomputes, no plain version (zamba2: its
+    shared attention, outside remat, once a stage and one recompute a
+    stage); the loss equals the plain path's within 1e-5 (float32)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -771,13 +775,14 @@ def test_reduced_training_step_on_card_counts_the_kernels(dev, arch):
     _, _, loss, _ = lm_train_step(model, params, init_adam(params), batch, 0,
                                   3e-4, 1)
     torch.cuda.synchronize()
-    n = cfg.n_layers
+    n = model.attn_calls
+    fwd = n * (1 + int(model.attn_remat))
     if cfg.family != "rwkv":
         assert FA.launches["flash_attention"] == \
-            FA.launches["flash_attention_f32"] == 2 * n
+            FA.launches["flash_attention_f32"] == fwd
         assert FA.recomputes["flash_attention_vjp"] == n
     else:
-        assert all(c == 2 * n for c in WK.launches.values())
+        assert all(c == fwd for c in WK.launches.values())
         assert WK.recomputes["wkv6_vjp"] == n
     assert not any({**FA.plain_calls, **WK.plain_calls}.values())
     assert abs(float(loss) - want) <= 1e-5 * abs(want)

@@ -50,6 +50,7 @@ def test_scan_sees_the_whole_port():
                  "core/trainer.py", "core/losses.py", "core/halo.py",
                  "data/points.py", "optim/adam.py", "launch/quickstart.py",
                  "models/causal_lm.py", "models/mla.py", "models/moe.py",
+                 "models/zamba.py",
                  "kernels/flash_attention.py",
                  "kernels/wkv6.py", "launch/serve.py",
                  "runtime/failures.py", "runtime/chaos.py",

@@ -1,9 +1,12 @@
 """PyTorch port of the LLM prefill-and-serve path against the JAX package:
 configs, the param tree, ``CausalLM.prefill`` / ``decode_step`` and the
 greedy ``launch.serve.generate`` of llama3.2-1b (dense GQA), minicpm3-4b
-(MLA), rwkv6-3b, deepseek-moe-16b (MoE with a dense prelude) and
-phi3.5-moe at reduced size, with the reference's params carried across
-key by key (``models.params_from_numpy``).
+(MLA), rwkv6-3b, deepseek-moe-16b (MoE with a dense prelude),
+phi3.5-moe, llava-next-mistral-7b (VLM; tokens only here, its patch path
+in ``test_torch_vlm.py``) and zamba2-1.2b (Mamba2 + shared attention;
+its tail stage in ``test_torch_zamba.py``) at reduced size, with the
+reference's params carried across key by key
+(``models.params_from_numpy``).
 
 Tolerances, relative to max |logit| of the reference's prefill:
 * float32: 1e-5.  The two frameworks sum in another order; measured up to
@@ -58,7 +61,10 @@ from repro_torch.models import (build_model, make_batch, params_from_numpy,
 from repro_torch.models import moe as TMOE
 
 ARCH_NAMES = ("llama3.2-1b", "minicpm3-4b", "rwkv6-3b", "deepseek-moe-16b",
-              "phi3.5-moe-42b-a6.6b")
+              "phi3.5-moe-42b-a6.6b", "llava-next-mistral-7b", "zamba2-1.2b")
+# the chunked scans (WKV6, Mamba2's SSD) take T up to ssm_chunk or a
+# multiple of it, as in the reference
+SSM_FAMILIES = ("rwkv", "hybrid")
 MOE_NAMES = tuple(n for n in ARCH_NAMES if ARCHS[n].family == "moe")
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 DROP_FREE_TOL = 1e-4
@@ -206,12 +212,12 @@ def _route_flips(calls, dtype) -> int:
 @pytest.mark.parametrize("name", ARCH_NAMES)
 def test_prefill_and_decode_match_reference(name, dtype, monkeypatch):
     """Prefill logits (a 37-token prompt for the attention families: two
-    ragged attention blocks; 32 for rwkv: two WKV chunks) and 16 decode
+    ragged attention blocks; 32 for rwkv and zamba2: two chunks) and 16 decode
     steps from an empty cache against the reference (MoE: with the
     reference's routes replayed, every differing route a near-tie)."""
     calls = _replay_routes(monkeypatch) if name in MOE_NAMES else None
     jm, jp, model, params = _pair(name, dtype)
-    S = 32 if name.startswith("rwkv") else 37
+    S = 32 if ARCHS[name].family in SSM_FAMILIES else 37
     toks = _tokens(model.cfg, 2, S)
     want = _np(jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(toks,
                                                               jnp.int32)}))
@@ -320,7 +326,7 @@ def test_prefill_on_cpu_takes_the_plain_versions():
 
 def test_build_model_families_and_device():
     for name, cfg in ARCHS.items():
-        if cfg.family in ("dense", "mla", "moe", "rwkv"):
+        if cfg.family in ("dense", "vlm", "mla", "moe", "rwkv", "hybrid"):
             assert build_model(cfg.reduced(), "cpu").device.type == "cpu"
         else:
             with pytest.raises(NotImplementedError, match="ROADMAP"):

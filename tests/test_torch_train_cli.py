@@ -80,7 +80,7 @@ def test_inverse_heat_problem_on_the_us_map(capsys):
 def test_lm_is_not_ported_yet():
     """``lm`` on a family whose blocks are not ported yet raises."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        train.main(["lm", "--arch", "zamba2-1.2b", "--reduced",
+        train.main(["lm", "--arch", "seamless-m4t-large-v2", "--reduced",
                     "--device", "cpu"])
 
 
