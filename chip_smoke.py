@@ -135,7 +135,11 @@ any of them ends the run with a non-zero exit code and no result line:
    phi3.5-moe's 32/8, dh 128), both dtypes; K5 at llava-next-mistral-7b's
    prefill shape (B 1, S = T = 4096: 2304 patches and 1792 tokens; 32/8
    heads of 128) and zamba2-1.2b's (B 2, S = T = 1024; its shared
-   attention's 32/32 heads of 64), both dtypes; and K6 (WKV6: a chunk,
+   attention's 32/32 heads of 64), both dtypes; K5 at the four calls of
+   seamless-m4t-large-v2 (ENCDEC_K5, 16/16 heads of 64): the encoder's
+   non-causal S = T = 1024, the decoder's causal S = T = 4096, the
+   cross-attention's non-causal S 4096 x T 1024 (B 1) and a decode
+   step's non-causal S 1 x T 8 (B 4), both dtypes; and K6 (WKV6: a chunk,
    a scan and an output kernel) against its plain version run in float64
    on the same inputs (rtol = atol = 2e-4, the reference's bound; the
    float32 plain version's own distance from it is printed beside): P 16,
@@ -154,22 +158,30 @@ any of them ends the run with a non-zero exit code and no result line:
    prefill shapes (B 1, S = T = 4096, dh 128, bf16, causal) beside the
    same three (llava-next-mistral-7b's shape is phi3.5-moe's); K5 at
    zamba2-1.2b's shared attention (B 1, S = T = 4096, H = Hk = 32, dh 64)
-   beside the same three; K6 at rwkv6-3b's
+   beside the same three; K5 at seamless-m4t-large-v2's four calls
+   (ENCDEC_K5: causal or not, S = T or S != T) beside the same three, the
+   bound counting S T visible pairs where the call is not causal and
+   reading q and o over S, k and v over T; K6 at rwkv6-3b's
    per-layer shape (B = 1, T = 4096, H = 40, P = 64, float32) beside its
    plain version;
 11. **llm** — llama3.2-1b, minicpm3-4b (MLA), rwkv6-3b,
    deepseek-moe-16b (MoE: the dense prelude and 27 MoE layers of 64
    routed experts, top-6, and 2 shared), llava-next-mistral-7b (VLM: the
    mistral backbone behind 2304 projected patch embeddings drawn from the
-   seed) and zamba2-1.2b (38 Mamba2 layers, the shared attention after
-   every 6) at their published width and depth, and phi3.5-moe at full
+   seed), zamba2-1.2b (38 Mamba2 layers, the shared attention after
+   every 6) and seamless-m4t-large-v2 (encoder-decoder: 24 encoder and
+   24 decoder layers behind 1024 frames drawn from the seed) at their
+   published width and depth, and phi3.5-moe at full
    width and 4 of its 32 layers (LLM_LAYERS), weights drawn from a seed
    on the card: prefill (B = 2, S = 1024 / B = 2, S = 1024 / B = 1, T =
    1024 / B = 2, S = 1024 / B = 2, S = 1024 / B = 1, S = 2304 patches +
-   1792 tokens / B = 2, S = 1024) through the kernels with the launch
+   1792 tokens / B = 2, S = 1024 / B = 1, S = 4096 tokens over 1024
+   frames) through the kernels with the launch
    counts set to 0 just before and read just after (exactly n_layers K5
    (dense, VLM, MLA, MoE) or K6 (rwkv) wrapper calls, n_layers // 6 = 6
-   for zamba2 (one a stage, ``_kernel_calls``),
+   for zamba2 (one a stage, ``_kernel_calls``), 24 + 2 x 24 = 72 for
+   seamless, by shape 24 non-causal S = T = 1024, 24 causal S = T = 4096
+   and 24 non-causal S 4096 x T 1024 (the wrapper's launches recorded),
    each on its device kernels: the bf16 K5 kernel, or K6's chunk, scan
    and output kernels; no plain version on a CUDA tensor), a profiler
    trace of it (the device kernels' share found by their names), the same
@@ -181,7 +193,11 @@ any of them ends the run with a non-zero exit code and no result line:
    any the plain pass is run again on the kernel pass's routes, replayed,
    and held at the same bar), and 16 decode steps (minicpm3's
    absorbed-latent decode; the VLM's decode takes tokens only, so it is
-   held against a tokens-only prefill) held against the float32 prefill
+   held against a tokens-only prefill; seamless decodes against a cross
+   cache of the prefill's encoded frames, built as the reference's
+   ``tests/test_models.py:60-71`` builds it, with exactly 24 float32 K5
+   launches a step, S 1 x T 1024, and every other family with none)
+   held against the float32 prefill
    (2e-3 of max |logit|, the reference's bound); MoE decode drops no token
    while a
    prefill drops those past capacity, so for MoE a B = 2, S = 64 prompt at
@@ -191,7 +207,9 @@ any of them ends the run with a non-zero exit code and no result line:
    that runs at full depth (all but phi3.5-moe) at full size
    (``--no-reduced --batch 4 --prompt-len 16 --gen 16``), twice
    (the first run pays the card's first-use costs): a (4, 32) token array,
-   its tokens/s printed;
+   its tokens/s printed, each run counted: no kernel launch but
+   seamless's, whose run encodes its 8 frames (24 K5 launches) and
+   launches K5 24 times in each of its 31 decode steps;
 13. **lm train** — ``repro_torch.launch.train.main(["lm", ...])`` on the
    card, each run with the counts set to 0 just before and read just
    after: (a) llama3.2-1b at its published size, B = 4, S = 1024, 30
@@ -218,13 +236,17 @@ any of them ends the run with a non-zero exit code and no result line:
    in phase 11) and (d) as well, and llava-next-mistral-7b at full width
    and 8 of its 32 layers, B = 1, S = 2304 patches + 1792 tokens, and
    zamba2-1.2b at its published size, B = 4, S = 1024, through the SSD at
-   its chunk of 256, 20 steps each, counted as (a) (zamba2: steps x 6 K5
+   its chunk of 256, and seamless-m4t-large-v2 at its published size, B =
+   4, S = 1024 tokens over 256 frames, 20 steps each, counted as (a)
+   (zamba2: steps x 6 K5
    launches and steps x 6 recomputes, its shared attention running once a
-   stage outside remat), through (c) ((c) gives the VLM 1024 tokens
-   behind its patches) and (d); (g) ms
+   stage outside remat; seamless: steps x 144 launches and steps x 72
+   recomputes), through (c) ((c) gives the VLM 1024 tokens
+   behind its patches, seamless 1024 tokens over 256 frames) and (d), and
+   seamless through (e) as well; (g) ms
    per step (median of the steps after the first two), tokens/s and
    ``torch.cuda.max_memory_allocated`` of (a) and (f), and torch.profiler
-   over three steps of each (the last three of (e)):
+   over the last step of each (LM_TRACE_STEPS of (e)):
    device busy ms, idle share, the K5 / K6 kernels' ms and launch counts
    (the traced remat factor), and the device ms inside the
    ``flash_attention_vjp`` / ``wkv6_vjp``, ``fused_head_ce`` and
@@ -233,7 +255,8 @@ any of them ends the run with a non-zero exit code and no result line:
    backward;
 14. **report** — one ``{"kernels": [...]}`` line (K1-K6; K5 and K6 also
    at the training shapes, K5 also at minicpm3's MLA shape, the MoE
-   configs' shapes and the VLM's and zamba2's paths), the card's name
+   configs' shapes, the VLM's and zamba2's paths and seamless's four
+   calls), the card's name
    and power limit from ``nvidia-smi``, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Each phase prints its seconds.
@@ -246,7 +269,8 @@ counted; K4 does two products per stream and layer), K6 the recurrence's
 4 P^2 FLOP per step and head, over 67 TFLOP/s, the H100 SXM's float32 rate
 outside the tensor cores; K5 its 2 (dh + dv) FLOP per visible (query,
 key) pair and head (4 dh where dv = dh; MLA's padded v columns are not
-work the function needs) over 989 TFLOP/s, the bf16 tensor-core rate,
+work the function needs; S T pairs where a call is not causal) over 989
+TFLOP/s, the bf16 tensor-core rate,
 since it takes and returns bf16 at the timed shapes.
 
 Every profiled window opens with PROFILE_PAD spin kernels of about a
@@ -336,20 +360,32 @@ WKV_TOL = 2e-4
 LLM_F32_TOL = 1e-4
 DECODE_TOL = 2e-3        # decode vs prefill, the reference's bound
 # prefill (B, S); the VLM's S counts its 2304 patches and 1792 tokens
-# (prefill_32k cut to 4096: the patches alone fill 2304 positions)
+# (prefill_32k cut to 4096: the patches alone fill 2304 positions); the
+# encoder-decoder's S tokens go with S // 4 = 1024 frames (cut as llava)
 LLM = {"llama3.2-1b": (2, 1024), "minicpm3-4b": (2, 1024),
        "rwkv6-3b": (1, 1024), "deepseek-moe-16b": (2, 1024),
        "phi3.5-moe-42b-a6.6b": (2, 1024),
-       "llava-next-mistral-7b": (1, 4096), "zamba2-1.2b": (2, 1024)}
+       "llava-next-mistral-7b": (1, 4096), "zamba2-1.2b": (2, 1024),
+       "seamless-m4t-large-v2": (1, 4096)}
 # depth cuts of the llm phase (the others run at full depth and are also
 # served): phi3.5-moe's 41.9 B float32 params (168 GB) do not fit the card,
 # 4 of its 32 layers (5.5 B, 22 GB) do
 LLM_LAYERS = {"phi3.5-moe-42b-a6.6b": 4}
-# the kernel wrapper each family's full causal forward calls (once a
-# layer; the hybrid's shared attention once a stage, ``_kernel_calls``)
+# the kernel wrapper each family's full forward calls (once a layer; the
+# hybrid's shared attention once a stage; the encoder-decoder once an
+# encoder layer and twice a decoder layer, ``_kernel_calls``)
 FAMILY_KERNEL = {"dense": "flash_attention", "mla": "flash_attention",
                  "moe": "flash_attention", "rwkv": "wkv6",
-                 "vlm": "flash_attention", "hybrid": "flash_attention"}
+                 "vlm": "flash_attention", "hybrid": "flash_attention",
+                 "encdec": "flash_attention"}
+# seamless-m4t-large-v2's K5 calls, (B, S, T, causal) at its 16/16 heads
+# of 64: the llm phase's prefill (B 1, 4096 tokens over 1024 frames) and
+# the serving decode step (B 4, one query over 32 // 4 = 8 cached frames)
+ENCDEC = "seamless-m4t-large-v2"
+ENCDEC_K5 = {"encoder self-attention": (1, 1024, 1024, False),
+             "decoder self-attention": (1, 4096, 4096, True),
+             "cross-attention, prefill": (1, 4096, 1024, False),
+             "cross-attention, decode": (4, 1, 8, False)}
 # the configs whose K5 shapes this slice added: the VLM's (32/8 heads of
 # 128) and zamba2-1.2b's shared attention (32/32 heads of 64)
 K5_PATHS = ("llava-next-mistral-7b", "zamba2-1.2b")
@@ -378,19 +414,25 @@ MLA_HEADS = (40, 96, 64)   # (H = Hk, dh, dv)
 # llava-next-mistral-7b at full width and 8 of its 32 layers (218 M params
 # a layer, 2.01 B in all: ~56 GB at seven copies), B 1 x 4096 (2304
 # patches + 1792 tokens); zamba2-1.2b at its published size (1.2 B, ~34
-# GB), B 4 x 1024, through the SSD at its chunk of 256
+# GB), B 4 x 1024, through the SSD at its chunk of 256;
+# seamless-m4t-large-v2 at its published size (1.633 B, ~46 GB), B 4 x
+# 1024 tokens over 256 frames.  ``learn``: 40 steps on one batch
 LM_TRAIN = {"llama3.2-1b": {"batch": 4, "seq": 1024, "steps": 30,
-                            "layers": None, "resume": True},
+                            "layers": None, "resume": True, "learn": True},
             "rwkv6-3b": {"batch": 1, "seq": 1024, "steps": 20,
-                         "layers": 12, "resume": False},
+                         "layers": 12, "resume": False, "learn": False},
             "minicpm3-4b": {"batch": 2, "seq": 1024, "steps": 20,
-                            "layers": 24, "resume": False},
+                            "layers": 24, "resume": False, "learn": False},
             "deepseek-moe-16b": {"batch": 2, "seq": 1024, "steps": 20,
-                                 "layers": 4, "resume": False},
+                                 "layers": 4, "resume": False,
+                                 "learn": False},
             "llava-next-mistral-7b": {"batch": 1, "seq": 4096, "steps": 20,
-                                      "layers": 8, "resume": False},
+                                      "layers": 8, "resume": False,
+                                      "learn": False},
             "zamba2-1.2b": {"batch": 4, "seq": 1024, "steps": 20,
-                            "layers": None, "resume": False}}
+                            "layers": None, "resume": False, "learn": False},
+            ENCDEC: {"batch": 4, "seq": 1024, "steps": 20, "layers": None,
+                     "resume": False, "learn": True}}
 LM_CKPT_EVERY = 15
 # one loss and its gradient, kernel path against plain path in float32:
 # the loss relative, each gradient leaf scaled by max(1, max |want|)
@@ -400,6 +442,10 @@ LM_GRAD_TOL = 1e-4
 LM_CPU_TOL = 1e-5        # 5 recipe steps, card against CPU, float32
 LM_LEARN_STEPS = 40      # steps on one repeated batch ...
 LM_LEARN = 0.9           # ... after which the loss is <= 0.9 x the first
+# steps of each LM training run traced by torch.profiler (the last of (e)):
+# parsing a trace costs ~15 s a step of ~20,000 device events (zamba2,
+# seamless), so one step, not three, keeps the script inside its limit
+LM_TRACE_STEPS = 1
 # the serving path's shape (width, depth, points per subdomain): the served
 # Burgers net at a serving batch; timing() runs it with n_sub=4, d_in=2
 MAIN = (24, 4, 512)
@@ -2271,10 +2317,20 @@ def lm_sweep(dev) -> dict:
                       dev), True, dname)
             n_path += 1
         print(f"K5 {name} B{B} H{H}/{Hk} dh{dh} S=T={S} causal ok")
-    emit({"k5_sweep_cases": n_fa + n_mla + n_moe + n_path,
+    # seamless-m4t-large-v2's calls (ENCDEC_K5): non-causal S = T and S !=
+    # T, causal S = T, and a decode step's one query over the frames
+    cfg = get_config(ENCDEC)
+    n_encdec = 0
+    for role, (B, S, T, causal) in ENCDEC_K5.items():
+        for dname in ("float32", "bfloat16"):
+            one(*_qkv(gen, B, S, T, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                      getattr(torch, dname), False, dev), causal, dname)
+            n_encdec += 1
+        print(f"K5 {ENCDEC} {role}: B{B} S{S} T{T} causal={causal} ok")
+    emit({"k5_sweep_cases": n_fa + n_mla + n_moe + n_path + n_encdec,
           "k5_mla_cases": n_mla, "k5_moe_cases": n_moe,
-          "k5_vlm_hybrid_cases": n_path, "tol": FA_TOL,
-          "max_abs_err": dict(worst)})
+          "k5_vlm_hybrid_cases": n_path, "k5_encdec_cases": n_encdec,
+          "tol": FA_TOL, "max_abs_err": dict(worst)})
 
     # K6's plain version in float64 on the same (cast) inputs: the
     # float32 plain version at a long chunk is itself off the recurrence at
@@ -2309,16 +2365,25 @@ def lm_sweep(dev) -> dict:
     return {"flash_attention": max(worst.values()), "wkv6": wworst}
 
 
-def fa_bound(B, S, H, Hk, dh, nbytes_el=2,
-             dv=None) -> tuple[float, str, int, int]:
-    """K5 at S == T, causal (top-left): q, k (dh wide), v and o (dv wide,
-    dh unless given) read once and written once; 2 (dh + dv) FLOP per
-    visible (query, key) pair and head (the scores and the P V product),
-    S (S + 1) / 2 pairs.  A v narrower than dh counts at its own width:
-    the kernel's zero-padded columns are not work the function needs."""
+def fa_bound(B, S, H, Hk, dh, nbytes_el=2, dv=None, T=None,
+             causal=True) -> tuple[float, str, int, int]:
+    """K5, S queries over T keys (T = S unless given): q and o read and
+    written over S, k and v over T, once each (q, k dh wide, v and o dv
+    wide, dh unless given); 2 (dh + dv) FLOP per visible (query, key) pair
+    and head (the scores and the P V product).  Causal (top-left) query s
+    sees min(s + 1, T) keys, S (S + 1) / 2 pairs at S == T; a non-causal
+    call sees S T.  A v narrower than dh counts at its own width: the
+    kernel's zero-padded columns are not work the function needs."""
     dv = dh if dv is None else dv
-    nbytes = nbytes_el * B * S * (dh + dv) * (H + Hk)
-    flops = 2 * (dh + dv) * B * H * S * (S + 1) // 2
+    T = S if T is None else T
+    nbytes = nbytes_el * B * (dh + dv) * (S * H + T * Hk)
+    if not causal:
+        pairs = S * T
+    elif S <= T:
+        pairs = S * (S + 1) // 2
+    else:
+        pairs = T * (T + 1) // 2 + (S - T) * T
+    flops = 2 * (dh + dv) * B * H * pairs
     t_bytes, t_ops = nbytes / HBM_BYTES, flops / BF16_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations", nbytes, flops)
@@ -2335,10 +2400,10 @@ def wkv_bound(B, T, H, P) -> tuple[float, str, int, int]:
             "bytes" if t_bytes > t_ops else "operations", nbytes, flops)
 
 
-def _sdpa(q, k, v):
+def _sdpa(q, k, v, causal=True):
     """PyTorch's fused attention on the same (B, S, H, dh) tensors, causal
-    (its mask is aligned top-left too) with GQA; the math backend is
-    excluded, so it is a fused kernel or an error."""
+    (its mask is aligned top-left too) or not, with GQA; the math backend
+    is excluded, so it is a fused kernel or an error."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -2347,7 +2412,7 @@ def _sdpa(q, k, v):
                       SDPBackend.EFFICIENT_ATTENTION]):
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True,
+            is_causal=causal,
             enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
 
 
@@ -2456,6 +2521,31 @@ def lm_timing(dev) -> dict:
     out[("flash_attention_hybrid", cfg.name)] = row
     emit({"timing": row})
     del q, k, v
+    torch.cuda.empty_cache()
+    # seamless-m4t-large-v2's four K5 calls (ENCDEC_K5), non-causal ones
+    # too, each beside its bound, its plain version and SDPA
+    cfg = get_config(ENCDEC)
+    H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    for role, (B, S, T, causal) in ENCDEC_K5.items():
+        q, k, v = _qkv(gen, B, S, T, H, Hk, dh, torch.bfloat16, False, dev)
+        kern = lambda: FA.flash_attention(q, k, v, causal=causal)
+        lib = lambda: _sdpa(q, k, v, causal)
+        sdpa_err = float((lib().float() - kern().float()).abs().max())
+        bms, by, nbytes, flops = fa_bound(B, S, H, Hk, dh, T=T,
+                                          causal=causal)
+        row = {"kernel": "flash_attention", "role": role,
+               "shape": f"B={B} S={S} T={T} H={H} Hk={Hk} dh={dh} bf16 "
+                        f"{'causal' if causal else 'non-causal'} ({ENCDEC})",
+               "ms": _graph_ms(kern, 20),
+               "plain_ms": _events_ms(lambda: FA.flash_attention_plain(
+                   q, k, v, causal=causal), 3),
+               "library_ms": _graph_ms(lib, 20), "bound_ms": bms,
+               "bound_by": by, "bytes": nbytes, "flops": flops,
+               "sdpa_max_abs_diff": sdpa_err}
+        row["tflops"] = flops / row["ms"] * 1e-9
+        out[("flash_attention_encdec", role)] = row
+        emit({"timing": row})
+        del q, k, v
     torch.cuda.empty_cache()
     B, T, H, P = 1, 4096, 40, 64
     args = _rkvwu(gen, B, T, H, P, "near1", dev)
@@ -2567,6 +2657,40 @@ def _moe_routes(replay=None):
         moe.route = route
 
 
+@contextlib.contextmanager
+def _k5_shapes():
+    """Record (causal, S, T) of every K5 launch (the wrapper's
+    ``_launch``) while the block runs."""
+    from repro_torch.kernels import flash_attention as FA
+
+    seen, launch = [], FA._launch
+
+    def wrapped(q, k, v, causal):
+        seen.append((bool(causal), q.shape[1], k.shape[1]))
+        return launch(q, k, v, causal)
+
+    FA._launch = wrapped
+    try:
+        yield seen
+    finally:
+        FA._launch = launch
+
+
+def _encdec_shapes(cfg, S) -> dict:
+    """(causal, S, T) -> K5 launches of one encoder-decoder prefill of S
+    tokens over S // enc_ratio frames."""
+    F = max(1, S // cfg.enc_ratio)
+    return {(False, F, F): cfg.n_layers, (True, S, S): cfg.n_dec_layers,
+            (False, S, F): cfg.n_dec_layers}
+
+
+def _decode_calls(cfg) -> int:
+    """K5 / K6 launches of one decode step: the encoder-decoder's
+    cross-attention (one query over the cached frames) once a decoder
+    layer; every other family decodes against its cache in plain torch."""
+    return cfg.n_dec_layers if cfg.family == "encdec" else 0
+
+
 def _route_flips(a, b) -> tuple[int, int]:
     """(routes, routes whose expert sets differ) between two passes'
     records (one (..., k) tensor of experts per router call)."""
@@ -2607,20 +2731,24 @@ def _kernel_calls(model) -> tuple[int, int, int]:
     and of one training step: the forward's launches (under remat a
     layer's forward runs again in the backward) and the VJP recomputes.
     One a layer; the hybrid's shared attention runs once a stage, outside
-    remat (``model.attn_calls`` / ``attn_remat``)."""
+    remat; the encoder-decoder's once an encoder and twice a decoder layer
+    (``model.attn_calls`` / ``attn_remat``)."""
     n = model.attn_calls
     return n, n * (1 + int(model.attn_remat)), n
 
 
 def llm_phase(dev) -> dict:
     """The published llama3.2-1b, minicpm3-4b, rwkv6-3b, deepseek-moe-16b,
-    llava-next-mistral-7b and zamba2-1.2b, and phi3.5-moe at 4 of its 32
-    layers, on the card: prefill through the kernels (counted; the VLM with
-    its patches), its trace, the plain versions in bf16 and float32 (MoE:
-    the routes that differ counted, the values held on the kernel pass's
-    routes), and decode against prefill (MoE: drop free; the VLM on a
-    tokens-only prompt).  Returns the launches of the counted prefills,
-    summed over the models and by model."""
+    llava-next-mistral-7b, zamba2-1.2b and seamless-m4t-large-v2, and
+    phi3.5-moe at 4 of its 32 layers, on the card: prefill through the
+    kernels (counted; the VLM with its patches, seamless with its frames
+    and its K5 calls by shape), its trace, the plain versions in bf16 and
+    float32 (MoE: the routes that differ counted, the values held on the
+    kernel pass's routes), and decode against prefill, counted (MoE: drop
+    free; the VLM on a tokens-only prompt; seamless against its cross
+    cache).  Returns the launches of the counted prefills, summed over the
+    models and by model, and seamless's K5 calls by shape in a prefill and
+    a decode step."""
     import dataclasses
 
     import torch
@@ -2629,7 +2757,7 @@ def llm_phase(dev) -> dict:
     from repro_torch.kernels import wkv6 as WK
     from repro_torch.models import build_model
 
-    launches, by_arch = {}, {}
+    launches, by_arch, encdec = {}, {}, None
     for name, (B, S) in LLM.items():
         cfg = get_config(name)
         if name in LLM_LAYERS:
@@ -2645,16 +2773,21 @@ def llm_phase(dev) -> dict:
             batch["patch_embeds"] = torch.randn(
                 (B, n_pat, cfg.patch_dim), generator=gen,
                 device=dev).to(getattr(torch, cfg.dtype))
+        if cfg.family == "encdec":   # the stub frontend's frames
+            batch["frames"] = torch.randn(
+                (B, S // cfg.enc_ratio, cfg.d_model), generator=gen,
+                device=dev).to(getattr(torch, cfg.dtype))
         kname = FAMILY_KERNEL[cfg.family]
         calls = _kernel_calls(model)[0]
         model.prefill(params, batch)          # warm-up (cuBLAS, the build)
         torch.cuda.synchronize()
         for m in (FA, WK):
             m.reset_launch_counts()
-        t0 = time.perf_counter()
-        logits = model.prefill(params, batch)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
+        with _k5_shapes() as shapes:
+            t0 = time.perf_counter()
+            logits = model.prefill(params, batch)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
         counts = {**FA.launches, **WK.launches}
         plain = {**FA.plain_calls, **WK.plain_calls}
         # one wrapper call per layer (the hybrid: per stage), each on the
@@ -2665,6 +2798,12 @@ def llm_phase(dev) -> dict:
         expect = {n: calls if n in (kname, *device) else 0 for n in counts}
         check(counts == expect, f"{name}: launches {counts}, want {expect}")
         check(not any(plain.values()), f"plain versions on CUDA: {plain}")
+        k5_shapes = {}
+        for sh in shapes:
+            k5_shapes[sh] = k5_shapes.get(sh, 0) + 1
+        if cfg.family == "encdec":   # non-causal S = T, causal, S != T
+            check(k5_shapes == _encdec_shapes(cfg, S),
+                  f"{name}: K5 shapes {k5_shapes}")
         check(tuple(logits.shape) == (B, S, cfg.padded_vocab),
               f"{name}: logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
@@ -2716,6 +2855,7 @@ def llm_phase(dev) -> dict:
               f"{name}: float32 prefill kernels vs plain {f32_rel:.3e} "
               f"{moe}")
         del want
+        dec_counts = {}
         if cfg.family == "moe":
             del got
             dec_rel, dec_tol = _drop_free_decode(cfg, params, tokens,
@@ -2726,11 +2866,27 @@ def llm_phase(dev) -> dict:
                 got = m32.prefill(params, {"tokens": tokens})
                 scale = float(got[..., :cfg.vocab].abs().max())
             cache = m32.init_cache(B, 16)
+            if cfg.family == "encdec":
+                # the cross K/V of the prefill's encoded frames, built as
+                # the reference's tests/test_models.py:60-71 builds them
+                cache = m32.fill_cross_cache(params, cache, batch["frames"])
+            _reset_lm_counts()
             dec = []
-            for t in range(16):
-                lg, cache = m32.decode_step(params, cache,
-                                            {"tokens": tokens[:, t:t + 1]}, t)
-                dec.append(lg[:, 0])
+            with _k5_shapes() as dshapes:
+                for t in range(16):
+                    lg, cache = m32.decode_step(
+                        params, cache, {"tokens": tokens[:, t:t + 1]}, t)
+                    dec.append(lg[:, 0])
+                torch.cuda.synchronize()
+            dec_counts = _lm_counts()
+            n_dec = 16 * _decode_calls(cfg)
+            dec_want = {k: n_dec if k in ("flash_attention",
+                                          "flash_attention_f32") else 0
+                        for k in dec_counts}
+            check(dec_counts == dec_want,
+                  f"{name}: 16 decode steps counted {dec_counts}")
+            check(set(dshapes) <= {(False, 1, S // cfg.enc_ratio)},
+                  f"{name}: decode K5 shapes {set(dshapes)}")
             dec_rel = float((torch.stack(dec, 1) - got[:, :16])[
                 ..., :cfg.vocab].abs().max()) / scale
             dec_tol = DECODE_TOL
@@ -2742,36 +2898,60 @@ def llm_phase(dev) -> dict:
             "layers": cfg.n_layers,
             "d_model": cfg.d_model, "prefill_s": secs,
             "prefill_tokens_per_s": B * S / secs, "launches": counts,
-            "plain_calls_on_cuda": plain, "bf16_kernel_vs_plain_rel": bf16_rel,
+            "plain_calls_on_cuda": plain,
+            "k5_shapes": {f"{'causal' if c else 'non-causal'} S={a} T={b}": n
+                          for (c, a, b), n in k5_shapes.items()},
+            "bf16_kernel_vs_plain_rel": bf16_rel,
             "f32_kernel_vs_plain_rel": f32_rel, "f32_tol": LLM_F32_TOL,
             "decode_vs_prefill_rel": dec_rel, "decode_tol": dec_tol,
+            "decode_launches_16_steps": {k: v for k, v in dec_counts.items()
+                                         if v},
             **({"moe": moe, "drop_free_decode": {
                 "prompt": list(DROP_FREE), "steps": DROP_FREE_STEPS,
                 "capacity_factor": 64.0}} if moe else {}),
             "profile": split}})
+        if cfg.family == "encdec":
+            encdec = {"prefill_shapes": k5_shapes,
+                      "decode_per_step": dec_counts["flash_attention"] // 16}
         del params, model, m32
         torch.cuda.empty_cache()
-    return {"launches": launches, "by_arch": by_arch}
+    return {"launches": launches, "by_arch": by_arch, "encdec": encdec}
 
 
-def llm_serve_phase(dev) -> None:
-    """``launch.serve.main`` on the card at full width and depth."""
+def llm_serve_phase(dev) -> dict:
+    """``launch.serve.main`` on the card at full width and depth, each run
+    counted: the encoder-decoder's frames encoded once (K5 a layer) and
+    K5 for the cross-attention in each of its 31 decode steps; no kernel
+    in any other family's decode.  Returns the K5 launches of a serving
+    run by model."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
     smi = _smi()
-    argv = ["--no-reduced", "--batch", "4", "--prompt-len", "16", "--gen",
-            "16"]
+    B, P, G = 4, 16, 16
+    argv = ["--no-reduced", "--batch", str(B), "--prompt-len", str(P),
+            "--gen", str(G)]
+    served = {}
     for name in LLM:
         if name in LLM_LAYERS:   # cut in depth: not served
             continue
+        cfg = get_config(name)
+        want = (cfg.n_layers if cfg.family == "encdec" else 0) + \
+            (P + G - 1) * _decode_calls(cfg)
         runs = []
         for _ in range(2):   # the first one pays the card's first-use costs
             buf = io.StringIO()
+            _reset_lm_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
                 rc = serve.main(["--arch", name] + argv)
             secs = time.perf_counter() - t0
+            counts = {k: v for k, v in _lm_counts().items() if v}
+            check(counts == ({"flash_attention": want,
+                              "flash_attention_sm90": want} if want
+                             else {}),
+                  f"serve {name}: counted {counts}, want {want} K5")
             report = json.loads(
                 buf.getvalue().strip().splitlines()[-1])["serve"]
             check(rc == 0, f"serve {name} exited {rc}")
@@ -2780,10 +2960,13 @@ def llm_serve_phase(dev) -> None:
             check(report["device"].startswith("cuda"), f"serve on {report}")
             runs.append((secs, report))
             torch.cuda.empty_cache()
+        served[name] = want
         emit({"llm_serve": {
             "arch": name, "argv": argv, "seconds": [r[0] for r in runs],
             "tokens_per_s": [r[1]["tokens_per_s"] for r in runs],
-            "new_tokens": runs[-1][1]["new_tokens"], "card": smi}})
+            "new_tokens": runs[-1][1]["new_tokens"], "launches": counts,
+            "card": smi}})
+    return served
 
 
 # ---------------------------------------------------------------- LM training
@@ -2927,18 +3110,18 @@ def _steady_ms(step_s) -> float:
 
 
 def _lm_trace(model, state, batch, start, total, kname) -> dict:
-    """Three recipe steps under torch.profiler from ``state`` = [params,
-    Adam state], updated in place (the caller holds no other reference, so
-    a step's peak is the untraced step's): device busy ms, idle share, the
-    K5 / K6 device kernels' ms and launch counts, the LM scopes' device ms
-    and the three losses."""
+    """Recipe steps ``start`` to ``total`` under torch.profiler from
+    ``state`` = [params, Adam state], updated in place (the caller holds no
+    other reference, so a step's peak is the untraced step's): device busy
+    ms, idle share, the K5 / K6 device kernels' ms and launch counts, the
+    LM scopes' device ms and the steps' losses."""
     import torch
     from repro_torch.launch import train
 
     losses = []
 
-    def three():
-        for s in range(start, start + 3):
+    def steps():
+        for s in range(start, total):
             state[0], state[1], loss, _ = train.lm_train_step(
                 model, state[0], state[1], batch, s, 3e-4, total)
             losses.append(loss)
@@ -2946,7 +3129,7 @@ def _lm_trace(model, state, batch, start, total, kname) -> dict:
 
     kernels = {n: DEVICE_KERNELS[n] for n in DEVICE_KERNELS
                if n.startswith(kname) and n != "flash_attention_f32"}
-    split = _device_split(three, kernels, LM_SCOPES)
+    split = _device_split(steps, kernels, LM_SCOPES)
     split["idle_share"] = 1.0 - split["device_busy_ms"] / \
         split["profiled_wall_ms"]
     split["losses"] = losses
@@ -3188,8 +3371,8 @@ def lm_train_phase(dev) -> dict:
                 "seconds": time.perf_counter() - t_part}})
             t_part = time.perf_counter()
 
-        # (e) learning on one repeated batch, then (g) a trace of three
-        # steps; (g) for rwkv6-3b on a fresh init
+        # (e) learning on one repeated batch, then (g) a trace of its last
+        # step (LM_TRACE_STEPS); the others traced on a fresh init
         for name, cell in LM_TRAIN.items():
             cfg = _lm_cfg(name)
             kname = FAMILY_KERNEL[cfg.family]
@@ -3199,31 +3382,33 @@ def lm_train_phase(dev) -> dict:
             shape = ShapeConfig("e", cell["seq"], cell["batch"], "train")
             batch = make_lm_batch(cfg, shape, "train", seed=SEED + 8,
                                   device=dev)
-            total = LM_LEARN_STEPS if cell["resume"] else 4
+            total = LM_LEARN_STEPS if cell["learn"] else 4
             losses = []
-            for s in range(total - 3):
+            start = total - LM_TRACE_STEPS
+            for s in range(start):
                 params, opt, loss, _ = train.lm_train_step(
                     model, params, opt, batch, s, 3e-4, total)
                 losses.append(float(loss))
             _reset_lm_counts()
             state = [params, opt]
             del params, opt
-            split = _lm_trace(model, state, batch, total - 3, total, kname)
+            split = _lm_trace(model, state, batch, start, total, kname)
             traced = _lm_counts()
             losses += split["losses"]
             dev_kernel = "flash_attention_sm90" if kname == \
                 "flash_attention" else "wkv6_chunk"
             per_fwd, per_step, _ = _kernel_calls(model)
-            want = 3 * per_step
+            want = LM_TRACE_STEPS * per_step
             check(split["kernel_count"][dev_kernel] == want ==
                   traced[dev_kernel],
                   f"{name}: traced {split['kernel_count']}, counted "
                   f"{traced}, want {want} {dev_kernel}")
-            row = {"arch": name, "trace_steps": 3, "profile": split,
+            row = {"arch": name, "trace_steps": LM_TRACE_STEPS,
+                   "profile": split,
                    "seconds": time.perf_counter() - t_part,
-                   "remat_factor_traced":
-                   split["kernel_count"][dev_kernel] / (3 * per_fwd)}
-            if cell["resume"]:
+                   "remat_factor_traced": split["kernel_count"][dev_kernel]
+                   / (LM_TRACE_STEPS * per_fwd)}
+            if cell["learn"]:
                 row["learn"] = {"steps": total, "first_loss": losses[0],
                                 "final_loss": losses[-1],
                                 "bar": LM_LEARN * losses[0],
@@ -3335,7 +3520,8 @@ def main(argv=None) -> int:
     llm = phase("llm", llm_phase, dev)
     for k, v in llm["launches"].items():
         launches[k] = launches.get(k, 0) + v
-    phase("llm serve", llm_serve_phase, dev)
+    served = phase("llm serve", llm_serve_phase, dev)
+    launches["flash_attention"] += 2 * sum(served.values())   # two runs each
     lm_train = phase("lm train", lm_train_phase, dev)
     for k, v in lm_train["launches"].items():
         launches[k] = launches.get(k, 0) + v
@@ -3395,6 +3581,28 @@ def main(argv=None) -> int:
                        lm_train[arch]["launches"][name]
                        / lm_train[arch]["steps"]}
                 for arch in K5_PATHS}
+            # seamless-m4t-large-v2: each call's shape timed, with its
+            # launches in one prefill (B 1 x 4096) or one decode step
+            enc = llm["encdec"]
+            per_role = {}
+            for role, (B, S, T, causal) in ENCDEC_K5.items():
+                per_role[role] = (
+                    {"launches_per_decode_step": enc["decode_per_step"]}
+                    if S == 1 else
+                    {"launches_per_prefill":
+                     enc["prefill_shapes"][(causal, S, T)]})
+            et = lm_train[ENCDEC]
+            kernels[-1]["encdec_path"] = {
+                "arch": ENCDEC,
+                "prefill_launches": llm["by_arch"][ENCDEC][name],
+                "serve_launches_per_run": served[ENCDEC],
+                "lm_train_launches": et["launches"][name],
+                "lm_train_launches_per_step": et["launches"][name]
+                / et["steps"],
+                "calls": {role: {**{k: v for k, v in times[(
+                    "flash_attention_encdec", role)].items()
+                    if k not in ("bytes", "flops")}, **per_role[role]}
+                    for role in ENCDEC_K5}}
     smi = _smi()
     if args.out:
         with open(args.out, "w") as f:

@@ -1,7 +1,10 @@
-"""Causal GQA flash attention (K5): the CUDA kernel's wrapper and plain version.
+"""GQA flash attention (K5), causal or not: the CUDA kernel's wrapper and
+plain version.
 
 Counterpart of the reference package's ``kernels/flash_attention.py``
-Pallas kernel ``_kernel`` (K5), the prefill hot spot of the dense models.
+Pallas kernel ``_kernel`` (K5), the prefill hot spot of the dense models;
+the encoder-decoder also sends it its non-causal calls (the encoder's S ==
+T, the cross-attention's S queries over T frames).
 Two device kernels, chosen by dtype: bf16 goes to
 ``csrc/flash_attention_sm90.cu`` (wgmma on the tensor cores, fed by TMA or,
 where TMA cannot take the strides, by element loads), float32 to

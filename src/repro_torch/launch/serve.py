@@ -7,8 +7,9 @@ Counterpart of the reference package's ``launch/serve.py``:
 
 Greedy decoding feeds the prompt through ``decode_step`` one token at a time
 and then decodes ``--gen`` tokens, as the reference does; weights are drawn
-from ``--seed`` on the device.  It runs on the CUDA card unless ``--device
-cpu`` is given.  ``--reduced`` (the default, as in the reference) serves the
+from ``--seed`` on the device (the encoder-decoder's frames from the
+reference's fixed seed).  It runs on the CUDA card unless ``--device cpu``
+is given.  ``--reduced`` (the default, as in the reference) serves the
 config's tiny same-family variant; ``--no-reduced`` serves the published
 width and depth (the reference's flag cannot be turned off).  Prints the
 reference's two lines and, last, one JSON object with the token count,
@@ -29,9 +30,21 @@ from repro_torch.models import build_model
 
 
 def generate(model, params, prompts: torch.Tensor, max_len: int, gen: int):
-    """Greedy decode. prompts: (B, P) int. Returns (B, P+gen) int64."""
+    """Greedy decode. prompts: (B, P) int. Returns (B, P+gen) int64.
+
+    The encoder-decoder first encodes ``max_len // enc_ratio`` frames drawn
+    from ``default_rng(0)`` (the reference's, whatever the seed) and fills
+    its cross cache from them once."""
+    cfg = model.cfg
     B, P = prompts.shape
     cache = model.init_cache(B, max_len)
+    if cfg.family == "encdec":
+        rng = np.random.default_rng(0)
+        frames = torch.as_tensor(
+            rng.normal(0, 1, (B, max(1, max_len // cfg.enc_ratio),
+                              cfg.d_model)),
+            dtype=getattr(torch, cfg.dtype), device=prompts.device)
+        cache = model.fill_cross_cache(params, cache, frames)
     toks = [prompts[:, i] for i in range(P)]
     for t in range(P + gen - 1):
         cur = toks[t][:, None]

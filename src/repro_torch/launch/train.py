@@ -26,17 +26,20 @@ prints the backend, the ranks and each rank's device.  Unlike the
 reference, it never falls back to the single-process trainer.  The
 residual path is the reference's ``DDConfig`` default (``jvp``).
 
-``lm`` trains a ported family (dense, vlm, mla, moe, rwkv, hybrid) on the
-synthetic token pipeline with the reference's recipe: each step a fresh batch
-(``make_batch(..., seed=seed * 100003 + step)``), ``CausalLM.loss`` and its
-gradient (per-layer remat, the chunked fused head cross-entropy; on the
-card K5 or K6 in every layer's forward, K5 once a stage in zamba2's
-shared attention), the global norm clipped to 1.0,
-``warmup_cosine(warmup=20)`` and Adam.  ``--reduced`` and ``--preset
+``lm`` trains any of the seven families (dense, vlm, mla, moe, rwkv,
+hybrid, encdec) on the synthetic token pipeline with the reference's
+recipe: each step a fresh batch (``make_batch(..., seed=seed * 100003 +
+step)``), ``CausalLM.loss`` and its gradient (per-layer remat, the chunked
+fused head cross-entropy; on the card K5 or K6 in every layer's forward,
+K5 once a stage in zamba2's shared attention, once an encoder layer and
+twice a decoder layer in the encoder-decoder), the global norm clipped to
+1.0, ``warmup_cosine(warmup=20)`` and Adam.  ``--reduced`` and ``--preset
 100m`` are the reference's configs; ``--n-layers`` cuts the depth (the
-card holds seven float32 copies of the params at the step's peak).  For
-the VLM ``--seq`` counts its patches and its tokens, as the reference's
-batch does, so it must exceed the config's ``n_patches``.  It
+encoder-decoder's two stacks alike; the card holds seven float32 copies
+of the params at the step's peak).  For the VLM ``--seq`` counts its
+patches and its tokens, as the reference's batch does, so it must exceed
+the config's ``n_patches``; the encoder-decoder's batch adds ``seq //
+enc_ratio`` frames.  It
 checkpoints ``{"params", "opt"}`` with ``{"step", "arch"}`` every
 ``--ckpt-every`` steps in the reference's layout (either package resumes
 the other's) and resumes with ``--resume``; a resumed run repeats the
@@ -233,7 +236,9 @@ def lm_config(args):
             cfg.reduced(), n_layers=8, d_model=768, n_heads=12, n_kv_heads=4,
             head_dim=64, d_ff=2048, vocab=32000, remat=False)
     if args.n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+        cfg = dataclasses.replace(
+            cfg, n_layers=args.n_layers,
+            n_dec_layers=args.n_layers if cfg.n_dec_layers else 0)
     return cfg
 
 

@@ -1,12 +1,13 @@
-"""The LLM side of the port: the dense (GQA), VLM, MLA, MoE, RWKV6 and
-hybrid (Zamba2: Mamba2 + shared attention) families.
+"""The LLM side of the port: the dense (GQA), VLM, MLA, MoE, RWKV6,
+hybrid (Zamba2: Mamba2 + shared attention) and encoder-decoder families,
+all seven of the reference's.
 
 ``build_model(cfg)`` returns a :class:`CausalLM` (``Zamba2Model`` for the
-hybrid) with the reference's entry points ``init``, ``init_cache``,
-``prefill``, ``decode_step`` and ``loss``; prefill and training on a card
-run the flash-attention (K5: dense, VLM, MLA, MoE, the hybrid's shared
-attention) and WKV6 (K6: RWKV6) kernels.  Still to port (ROADMAP Queue
-1): the encoder-decoder family.
+hybrid, ``EncDecModel`` for the encoder-decoder) with the reference's entry
+points ``init``, ``init_cache``, ``prefill``, ``decode_step`` and
+``loss``; prefill and training on a card run the flash-attention (K5:
+dense, VLM, MLA, MoE, the hybrid's shared attention, the encoder-decoder's
+encoder, decoder and cross-attention) and WKV6 (K6: RWKV6) kernels.
 """
 from repro_torch.models.api import (build_model, make_batch,
                                     params_from_numpy, params_to_numpy)

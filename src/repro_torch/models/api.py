@@ -23,16 +23,20 @@ from repro_torch.models import moe as _moe      # noqa: F401
 from repro_torch.models import ssm as _ssm      # noqa: F401
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models.causal_lm import CausalLM, _dtype
+from repro_torch.models.encdec import EncDecModel
 from repro_torch.models.zamba import Zamba2Model
 
 
 def build_model(cfg: ModelConfig, device=None) -> CausalLM:
-    """The model of ``cfg`` on ``device`` (``cuda`` unless given).  The
-    families ported are ``dense``, ``vlm``, ``mla``, ``moe``, ``rwkv`` and
-    ``hybrid`` (:class:`Zamba2Model`); ``encdec`` raises
-    ``NotImplementedError``."""
+    """The model of ``cfg`` on ``device`` (``cuda`` unless given): a
+    :class:`CausalLM` over the family's registered block (``dense``,
+    ``vlm``, ``mla``, ``moe``, ``rwkv``), :class:`Zamba2Model` for
+    ``hybrid`` and :class:`EncDecModel` for ``encdec``.  A family with no
+    registered block raises ``NotImplementedError``."""
     if cfg.family == "hybrid":
         return Zamba2Model(cfg, device)
+    if cfg.family == "encdec":
+        return EncDecModel(cfg, device)
     return CausalLM(cfg, device)
 
 

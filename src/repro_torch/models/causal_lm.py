@@ -23,7 +23,8 @@ frontend: a batch's precomputed ``patch_embeds`` (B, P, patch_dim) are
 projected by ``vis_proj`` and prepended to the token embeddings, so the
 layers (and K5) see one causal sequence of P + S positions; ``loss`` drops
 the patch positions before the head.  Decode takes tokens only, as in the
-reference.  The Zamba2 hybrid is a subclass (``models/zamba.py``).
+reference.  The Zamba2 hybrid (``models/zamba.py``) and the
+encoder-decoder (``models/encdec.py``) are subclasses.
 
 The model lives on one device, ``cuda`` unless the caller asks for the CPU
 (``build_model(cfg, device="cpu")``); its params and caches are made there.

@@ -12,14 +12,18 @@ conventions:
 * Initializers draw from a ``torch.Generator`` on the device the tensors are
   made on; they give other numbers than ``jax.random`` from the same seed,
   so tests carry the reference's params across (``api.params_from_numpy``).
-* Attention: the full causal forward (``causal``, ``q_offset == 0``, no
-  ``kv_len``) is the flash-attention kernel's function (K5), so on CUDA
-  tensors :func:`chunked_attention` launches it; every other call (decode
-  against a cache) and every CPU call runs the plain blocked attention
+* Attention: every full call (``q_offset == 0``, no ``kv_len``), causal
+  or not and with S == T or not (the encoder-decoder's bidirectional
+  encoder and its cross-attention over the encoder's memory), is the
+  flash-attention kernel's function (K5), so :func:`chunked_attention`
+  sends it to the kernel's wrapper with its own ``causal`` flag: on CUDA
+  tensors it launches K5, on CPU tensors the wrapper takes its plain
+  version.  A call with ``kv_len`` (self-attention decode against a cache)
+  runs the plain blocked attention
   (``kernels.flash_attention.attention_blocks``).  The choice follows the
   arguments and the tensors' device, never a failure.  Where grad is
-  enabled and q, k or v needs it, the full causal forward goes through the
-  kernel's training entry (``flash_attention_train``: K5 forward, the plain
+  enabled and q, k or v needs it, a full call goes through the kernel's
+  training entry (``flash_attention_train``: K5 forward, the plain
   version's VJP by recompute in the backward).
 * Loss: :func:`fused_head_cross_entropy` chunks the head product and the
   cross-entropy over the sequence, each chunk a ``torch.autograd.Function``
@@ -88,6 +92,16 @@ def rms_norm(x, w, eps=1e-5):
     return (x * w.float()).to(dt)
 
 
+def layer_norm(x, w, b, eps=1e-5):
+    """LayerNorm over the last axis, in float32, cast back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
+
+
 # ------------------------------------------------------------------------- rope
 
 def rope_freqs(head_dim: int, theta: float = 1e4):
@@ -120,22 +134,22 @@ def chunked_attention(q, k, v, *, causal=True, q_offset=0, block_q=512,
     q_offset: absolute position of q[0] (causal masking for prefill chunks).
     kv_len: optional (B,) valid cache lengths (decode); None -> all T valid.
 
-    ``causal`` with ``q_offset == 0`` and no ``kv_len`` is K5's function: on
-    CUDA tensors the kernel runs it (its own tiles, its own causal skip),
-    through its training entry where grad is enabled and an input needs
-    it; ``plain=True`` takes the kernel's plain version (differentiable by
-    autograd) there instead, by name.
+    A full call (``q_offset == 0``, no ``kv_len``; causal or not, any S
+    and T) is K5's function: on CUDA tensors the kernel runs it (its own
+    tiles, its own causal skip), through its training entry where grad is
+    enabled and an input needs it; ``plain=True`` takes the kernel's plain
+    version (differentiable by autograd) there instead, by name.
     The reference's ``causal_skip`` (an XLA-only FLOP saving with the same
     values) has no counterpart: the kernel skips above the diagonal anyway.
     """
-    if causal and q_offset == 0 and kv_len is None:
+    if q_offset == 0 and kv_len is None:
         if plain:
             fn = FA.flash_attention_plain
         elif needs_grad(q, k, v):
             fn = FA.flash_attention_train
         else:
             fn = FA.flash_attention
-        return fn(q, k, v, causal=True, block_q=block_q)
+        return fn(q, k, v, causal=causal, block_q=block_q)
     return FA.attention_blocks(q, k, v, causal=causal, q_offset=q_offset,
                                kv_len=kv_len, block_q=block_q)
 
@@ -233,6 +247,22 @@ def swiglu(p, x):
     dt = x.dtype
     h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wi"].to(dt))
     return h @ p["wo"].to(dt)
+
+
+def init_gelu_mlp(gen, d_model, d_ff, std=0.02):
+    return {
+        "wi": normal_init(gen, (d_model, d_ff), std),
+        "bi": zeros(gen, (d_ff,)),
+        "wo": normal_init(gen, (d_ff, d_model), std),
+        "bo": zeros(gen, (d_model,)),
+    }
+
+
+def gelu_mlp(p, x):
+    """The reference's ``jax.nn.gelu`` is the tanh approximation."""
+    dt = x.dtype
+    h = F.gelu(x @ p["wi"].to(dt) + p["bi"].to(dt), approximate="tanh")
+    return h @ p["wo"].to(dt) + p["bo"].to(dt)
 
 
 # ----------------------------------------------------------------- vocab layers

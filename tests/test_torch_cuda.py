@@ -531,6 +531,75 @@ def test_flash_attention_mla_shape_on_card(dev, S, dtype, tol):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1e-2)], ids=str)
+@pytest.mark.parametrize("B,S,T,causal", [
+    (1, 1024, 1024, False),    # the encoder's self-attention
+    (1, 4096, 4096, True),     # the decoder's self-attention
+    (1, 4096, 1024, False),    # the cross-attention in a prefill
+    (4, 1, 8, False)])         # the cross-attention in a decode step
+def test_flash_attention_encdec_shapes_on_card(dev, B, S, T, causal, dtype,
+                                               tol):
+    """seamless-m4t-large-v2's K5 shapes (16/16 heads of 64): one launch
+    on the kernel of its dtype, within K5's bound of the plain version."""
+    q, k, v = _qkv(dev, B, S, T, 16, 16, 64, dtype, seed=S + T)
+    FA.reset_launch_counts()
+    got = FA.flash_attention(q, k, v, causal=causal)
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    kern = "flash_attention_sm90" if dtype == torch.bfloat16 else \
+        "flash_attention_f32"
+    assert FA.launches["flash_attention"] == FA.launches[kern] == 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_reduced_encdec_on_card_matches_cpu(dev):
+    """The reduced seamless-m4t-large-v2 in float32 from one set of params:
+    the prefill on the card (6 K5 launches: 2 encoder, 2 decoder, 2 cross)
+    and 8 decode steps against the cross cache (2 K5 launches a step, the
+    cross-attention's) within 1e-5 of max |logit| of the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.nets import map_tree
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("seamless-m4t-large-v2").reduced(),
+                              dtype="float32")
+    g = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (2, 32), generator=g)
+    frames = torch.randn((2, 8, cfg.d_model), generator=g)
+    out = {}
+    params0 = build_model(cfg, "cpu").init(0)
+    for device in ("cpu", dev):
+        model = build_model(cfg, device)
+        params = map_tree(lambda t: t.to(device), params0)
+        FA.reset_launch_counts()
+        logits = model.prefill(params, {"tokens": tokens.to(device),
+                                        "frames": frames.to(device)})
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert FA.launches["flash_attention_f32"] == model.attn_calls \
+                == 6
+        cache = model.fill_cross_cache(params, model.init_cache(2, 8),
+                                       frames.to(device))
+        FA.reset_launch_counts()
+        dec = []
+        for t in range(8):
+            lg, cache = model.decode_step(
+                params, cache, {"tokens": tokens[:, t:t + 1].to(device)}, t)
+            dec.append(lg[:, 0])
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert FA.launches["flash_attention_f32"] == 8 * 2
+        assert not any(FA.plain_calls.values())
+        out[str(device)] = (logits.cpu(), torch.stack(dec, 1).cpu())
+    (lc, dc), (lg, dg) = out["cpu"], out[str(dev)]
+    scale = float(lc.abs().max())
+    assert float((lg - lc).abs().max()) <= 1e-5 * scale
+    assert float((dg - dc).abs().max()) <= 1e-5 * scale
+
+
 def test_flash_attention_refuses_what_it_does_not_take(dev):
     q, k, v = _qkv(dev, 1, 8, 8, 2, 2, 16, torch.float32, 0)
     with pytest.raises(ValueError, match="dv <= dh"):
@@ -615,13 +684,15 @@ def test_wkv6_refuses_what_it_does_not_take(dev):
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "minicpm3-4b", "rwkv6-3b",
                                   "deepseek-moe-16b", "llava-next-mistral-7b",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "seamless-m4t-large-v2"])
 def test_reduced_prefill_on_card_runs_the_kernels(dev, arch):
     """The reduced model's prefill on the card launches K5 (or K6) once per
     layer (deepseek-moe-16b: the dense prelude's and the MoE layer's;
-    zamba2-1.2b: once per stage of its shared attention), runs no plain
-    version on a CUDA tensor, and its float32 logits match the plain path
-    on the card within 1e-4 of max |logit|."""
+    zamba2-1.2b: once per stage of its shared attention;
+    seamless-m4t-large-v2: once per encoder layer and twice per decoder
+    layer, over 8 frames), runs no plain version on a CUDA tensor, and its
+    float32 logits match the plain path on the card within 1e-4 of max
+    |logit|."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -633,6 +704,10 @@ def test_reduced_prefill_on_card_runs_the_kernels(dev, arch):
     tokens = torch.randint(0, cfg.vocab, (2, 32),
                            generator=torch.Generator().manual_seed(1))
     batch = {"tokens": tokens.to(dev)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            (2, 8, cfg.d_model), generator=torch.Generator().manual_seed(2)
+        ).to(dev)
     FA.reset_launch_counts()
     WK.reset_launch_counts()
     got = model.prefill(params, batch)
@@ -747,7 +822,8 @@ def test_wkv6_train_on_card(dev):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "minicpm3-4b", "rwkv6-3b",
-                                  "llava-next-mistral-7b", "zamba2-1.2b"])
+                                  "llava-next-mistral-7b", "zamba2-1.2b",
+                                  "seamless-m4t-large-v2"])
 def test_reduced_training_step_on_card_counts_the_kernels(dev, arch):
     """One step of ``launch.train``'s recipe on the card with per-layer
     remat: exactly 2 x n_layers K5 (or K6) launches (the forward and its

@@ -3,8 +3,11 @@ configs, the param tree, ``CausalLM.prefill`` / ``decode_step`` and the
 greedy ``launch.serve.generate`` of llama3.2-1b (dense GQA), minicpm3-4b
 (MLA), rwkv6-3b, deepseek-moe-16b (MoE with a dense prelude),
 phi3.5-moe, llava-next-mistral-7b (VLM; tokens only here, its patch path
-in ``test_torch_vlm.py``) and zamba2-1.2b (Mamba2 + shared attention;
-its tail stage in ``test_torch_zamba.py``) at reduced size, with the
+in ``test_torch_vlm.py``), zamba2-1.2b (Mamba2 + shared attention; its
+tail stage in ``test_torch_zamba.py``) and seamless-m4t-large-v2
+(encoder-decoder: prompts carry frames, decode caches carry the cross K/V
+of the encoded frames; the family's own parts in
+``test_torch_encdec.py``) at reduced size, with the
 reference's params carried across key by key
 (``models.params_from_numpy``).
 
@@ -48,6 +51,7 @@ from repro.configs.base import active_param_count as j_active
 from repro.configs.base import param_count as j_count
 from repro.launch.serve import generate as j_generate
 from repro.models import build_model as j_build
+from repro.models import layers as JL
 from repro.models import make_batch as j_make_batch
 from repro.models import moe as JMOE
 from repro_torch.configs import ARCHS, SHAPES, get_config
@@ -61,7 +65,8 @@ from repro_torch.models import (build_model, make_batch, params_from_numpy,
 from repro_torch.models import moe as TMOE
 
 ARCH_NAMES = ("llama3.2-1b", "minicpm3-4b", "rwkv6-3b", "deepseek-moe-16b",
-              "phi3.5-moe-42b-a6.6b", "llava-next-mistral-7b", "zamba2-1.2b")
+              "phi3.5-moe-42b-a6.6b", "llava-next-mistral-7b", "zamba2-1.2b",
+              "seamless-m4t-large-v2")
 # the chunked scans (WKV6, Mamba2's SSD) take T up to ssm_chunk or a
 # multiple of it, as in the reference
 SSM_FAMILIES = ("rwkv", "hybrid")
@@ -99,6 +104,54 @@ def _tokens(cfg, B, S, seed=1):
 def _np(t):
     return np.asarray(t, np.float32) if not isinstance(t, torch.Tensor) \
         else t.float().numpy()
+
+
+def _prompt(cfg, toks):
+    """A prefill batch of numpy arrays: the tokens and, for the
+    encoder-decoder, float32 frames (B, S // enc_ratio, d_model)."""
+    out = {"tokens": toks}
+    if cfg.family == "encdec":
+        B, S = toks.shape
+        out["frames"] = np.random.default_rng(5).normal(
+            size=(B, max(1, S // cfg.enc_ratio), cfg.d_model)).astype(
+                np.float32)
+    return out
+
+
+def _j_batch(batch):
+    return {k: jnp.asarray(v, jnp.int32 if k == "tokens" else None)
+            for k, v in batch.items()}
+
+
+def _t_batch(batch):
+    return {k: torch.as_tensor(v) for k, v in batch.items()}
+
+
+def _j_cache(jm, jp, batch, B, T):
+    """The reference's empty decode cache; the encoder-decoder's with its
+    cross K/V filled from the encoded frames (``tests/test_models.py``)."""
+    cache = jm.init_cache(B, T)
+    if jm.cfg.family != "encdec":
+        return cache
+    cfg = jm.cfg
+    mem = jm.encode(jp, jnp.asarray(batch["frames"]))
+    cks, cvs = [], []
+    for l in range(cfg.n_dec_layers):
+        lp = jax.tree.map(lambda v: v[l], jp["dec"])
+        _, mk, mv = JL.gqa_project(lp["cross_attn"], mem, cfg.n_heads,
+                                   cfg.n_kv_heads, cfg.hd, mem.dtype)
+        cks.append(mk)
+        cvs.append(mv)
+    return {**cache, "cross_k": jnp.stack(cks), "cross_v": jnp.stack(cvs)}
+
+
+def _t_cache(model, params, batch, B, T):
+    """The port's counterpart of :func:`_j_cache`."""
+    cache = model.init_cache(B, T)
+    if model.cfg.family != "encdec":
+        return cache
+    return model.fill_cross_cache(params, cache,
+                                  torch.as_tensor(batch["frames"]))
 
 
 # ------------------------------------------------------------------ configs
@@ -218,15 +271,16 @@ def test_prefill_and_decode_match_reference(name, dtype, monkeypatch):
     calls = _replay_routes(monkeypatch) if name in MOE_NAMES else None
     jm, jp, model, params = _pair(name, dtype)
     S = 32 if ARCHS[name].family in SSM_FAMILIES else 37
-    toks = _tokens(model.cfg, 2, S)
-    want = _np(jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(toks,
-                                                              jnp.int32)}))
-    got = model.prefill(params, {"tokens": torch.as_tensor(toks)})
+    batch = _prompt(model.cfg, _tokens(model.cfg, 2, S))
+    toks = batch["tokens"]
+    want = _np(jax.jit(jm.prefill)(jp, _j_batch(batch)))
+    got = model.prefill(params, _t_batch(batch))
     assert got.shape == (2, S, model.cfg.padded_vocab)
     scale = float(np.abs(want).max())
     err = float(np.abs(_np(got) - want).max()) / scale
     assert err <= TOL[dtype], err
-    jcache, cache = jm.init_cache(2, 16), model.init_cache(2, 16)
+    jcache = _j_cache(jm, jp, batch, 2, 16)
+    cache = _t_cache(model, params, batch, 2, 16)
     jdec = jax.jit(jm.decode_step)
     derr = 0.0
     for t in range(16):
@@ -249,9 +303,10 @@ def test_decode_matches_own_prefill(name):
     """The port's 16 decode steps reproduce its own float32 prefill within
     the reference's bound (2e-3 of max |logit|)."""
     _, _, model, params = _pair(name)
-    toks = torch.as_tensor(_tokens(model.cfg, 2, 16, seed=2))
-    full = model.prefill(params, {"tokens": toks})
-    cache = model.init_cache(2, 16)
+    batch = _prompt(model.cfg, _tokens(model.cfg, 2, 16, seed=2))
+    toks = torch.as_tensor(batch["tokens"])
+    full = model.prefill(params, _t_batch(batch))
+    cache = _t_cache(model, params, batch, 2, 16)
     outs = []
     for t in range(16):
         logits, cache = model.decode_step(params, cache,
@@ -315,8 +370,8 @@ def test_prefill_on_cpu_takes_the_plain_versions():
     for name in ARCH_NAMES:
         _, _, model, params = _pair(name)
         before = (dict(FA.launches), dict(WK.launches))
-        model.prefill(params, {"tokens": torch.as_tensor(
-            _tokens(model.cfg, 1, 16))})
+        model.prefill(params, _t_batch(_prompt(model.cfg,
+                                               _tokens(model.cfg, 1, 16))))
         assert (dict(FA.launches), dict(WK.launches)) == before
         assert not any(FA.plain_calls.values())
         assert not any(WK.plain_calls.values())
@@ -325,12 +380,12 @@ def test_prefill_on_cpu_takes_the_plain_versions():
 # ------------------------------------------------------------------ entry
 
 def test_build_model_families_and_device():
+    """Every family of the reference's configs builds (all seven are
+    ported), on the device asked for."""
+    assert {cfg.family for cfg in ARCHS.values()} == {
+        "dense", "vlm", "mla", "moe", "rwkv", "hybrid", "encdec"}
     for name, cfg in ARCHS.items():
-        if cfg.family in ("dense", "vlm", "mla", "moe", "rwkv", "hybrid"):
-            assert build_model(cfg.reduced(), "cpu").device.type == "cpu"
-        else:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                build_model(cfg.reduced(), "cpu")
+        assert build_model(cfg.reduced(), "cpu").device.type == "cpu"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_model(ARCHS["llama3.2-1b"].reduced())

@@ -75,6 +75,8 @@ def _close(got, want, tol):
     (2, 4, 2, 128, 128, 64, True),
     (1, 8, 8, 256, 256, 128, True),
     (2, 4, 1, 128, 256, 64, False),   # cross-attention-style, MQA grouping
+    (2, 4, 4, 128, 32, 64, False),    # the encoder-decoder's cross-attention:
+                                      # S tokens over S / 4 frames
     (1, 2, 2, 64, 64, 100, True),     # head dim that is not a power of two
 ])
 def test_flash_attention_plain_vs_pallas(B, H, Hk, S, T, dh, causal):

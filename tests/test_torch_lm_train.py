@@ -2,8 +2,8 @@
 ``layers.cross_entropy`` / ``fused_head_cross_entropy``, ``CausalLM.loss``
 and its gradients (llama3.2-1b, minicpm3-4b, rwkv6-3b, deepseek-moe-16b
 with its dense prelude, phi3.5-moe, llava-next-mistral-7b with its
-patches and zamba2-1.2b, reduced; the MoE loss with its load-balance
-term),
+patches, zamba2-1.2b and seamless-m4t-large-v2 with its frames, reduced;
+the MoE loss with its load-balance term),
 per-layer remat, the kernels' training entries (``flash_attention_train``,
 ``wkv6_train``) and ``launch.train lm`` with its checkpoints, the
 reference's params and checkpoints carried across.
@@ -46,7 +46,8 @@ from repro_torch.models import build_model, params_from_numpy
 from repro_torch.models import layers as L
 
 ARCH_NAMES = ("llama3.2-1b", "minicpm3-4b", "rwkv6-3b", "deepseek-moe-16b",
-              "phi3.5-moe-42b-a6.6b", "llava-next-mistral-7b", "zamba2-1.2b")
+              "phi3.5-moe-42b-a6.6b", "llava-next-mistral-7b", "zamba2-1.2b",
+              "seamless-m4t-large-v2")
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 SAME = 1e-6
@@ -163,13 +164,17 @@ def _pair(name, dtype="float32", **over):
 
 def _train_batch(cfg, B=2, S=32, seed=3):
     """S tokens and labels; the VLM's patches in front of them (every
-    leaf of its params then takes part in the loss)."""
+    leaf of its params then takes part in the loss), the
+    encoder-decoder's S // enc_ratio frames beside them."""
     rng = np.random.default_rng(seed)
     out = {"tokens": rng.integers(0, cfg.vocab, (B, S)),
            "labels": rng.integers(0, cfg.vocab, (B, S))}
     if cfg.family == "vlm":
         out["patch_embeds"] = rng.normal(
             size=(B, cfg.n_patches, cfg.patch_dim)).astype(np.float32)
+    if cfg.family == "encdec":
+        out["frames"] = rng.normal(
+            size=(B, S // cfg.enc_ratio, cfg.d_model)).astype(np.float32)
     return out
 
 
@@ -197,7 +202,8 @@ def test_loss_and_grads_match_reference(name, dtype):
     assert len(errs) == len(jax.tree.leaves(jgrads))
     assert max(errs) <= GRAD_TOL[dtype], max(errs)
     # the training entries ran, one VJP recompute per layer (zamba2: per
-    # stage), on the CPU's plain versions (no kernel launch)
+    # stage; seamless: per encoder layer and two per decoder layer), on
+    # the CPU's plain versions (no kernel launch)
     n = model.attn_calls
     rec = WK.recomputes["wkv6_vjp"] if name.startswith("rwkv") \
         else FA.recomputes["flash_attention_vjp"]

@@ -4,20 +4,23 @@
 the same problem reach the same loss (1e-4 relative), a distributed
 checkpoint resumes in the single-process trainer and continues the
 uninterrupted trajectory (1e-4), the inverse problem (``heat2d_inverse``
-on the US map, two nets) runs, ``lm`` trains a reduced ported family and
+on the US map, two nets) runs, ``lm`` trains a reduced family and
 prints its JSON line (the LM path's parity is
-``tests/test_torch_lm_train.py``) while the families not ported yet
-raise ``NotImplementedError``, and without ``--device`` the entry point
-refuses to run where there is no card.
+``tests/test_torch_lm_train.py``) while a family with no registered
+block raises ``NotImplementedError``, and without ``--device`` the entry
+point refuses to run where there is no card.
 
 Small sizes: 2 x 2 Burgers, 16 x 2 nets, 64 residual points per
 subdomain, the reference's default residual path (jvp)."""
+import dataclasses
 import json
 
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.launch import train
+from repro_torch.models import causal_lm
 
 SMALL = ["--nx", "2", "--nt", "2", "--width", "16", "--depth", "2",
          "--n-res", "64", "--n-bnd", "16", "--n-iface", "8",
@@ -77,15 +80,20 @@ def test_inverse_heat_problem_on_the_us_map(capsys):
     assert out["steps"] == 2 and out["rel_l2"] > 0   # against its exact u
 
 
-def test_lm_is_not_ported_yet():
-    """``lm`` on a family whose blocks are not ported yet raises."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train.main(["lm", "--arch", "seamless-m4t-large-v2", "--reduced",
-                    "--device", "cpu"])
+def test_lm_is_not_ported_yet(monkeypatch):
+    """``lm`` on a family with no registered block (a config whose family
+    is absent from ``BLOCKS``) raises, naming ROADMAP."""
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(),
+                              family="unported")
+    assert cfg.family not in causal_lm.BLOCKS
+    monkeypatch.setattr(train, "lm_config", lambda args: cfg)
+    with pytest.raises(NotImplementedError, match="not ported yet.*ROADMAP"):
+        train.main(["lm", "--reduced", "--device", "cpu", "--steps", "1"])
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "minicpm3-4b", "rwkv6-3b",
-                                  "deepseek-moe-16b"])
+                                  "deepseek-moe-16b",
+                                  "seamless-m4t-large-v2"])
 def test_lm_runs_and_prints_its_json_line(capsys, arch):
     assert train.main(["lm", "--arch", arch, "--reduced", "--device", "cpu",
                        "--steps", "2", "--batch", "2", "--seq", "32",
