@@ -6,7 +6,7 @@
     python3 chip_smoke.py --only distributed   # build + phase 7 only
     python3 chip_smoke.py --only scenarios     # build + phase 8 only
     python3 chip_smoke.py --only lm            # build + phases 9-12 only
-    python3 chip_smoke.py --only lm_train      # build + phase 13 only
+    python3 chip_smoke.py --only lm_train      # build + phases 13-14 only
 
 Run from the root of a checkout.  With ``--ab DIR`` only the build and an
 A/B runs: this checkout's K3 and K4 and the ones built from
@@ -253,7 +253,22 @@ any of them ends the run with a non-zero exit code and no result line:
    ``adam_update`` scopes; then K5 and K6 at the training shapes beside
    their plain versions, SDPA and the training entry's forward and
    backward;
-14. **report** — one ``{"kernels": [...]}`` line (K1-K6; K5 and K6 also
+14. **dryrun** — the dry run (``repro_torch.launch.dryrun``: the step
+   traced on the meta device, nothing launched) against the card: (a)
+   each LM_TRAIN run's training step at its config, depth cut and batch
+   on a (1, 1) mesh, its predicted peak within DRYRUN_PEAK_TOL of the
+   run's ``torch.cuda.max_memory_allocated`` less what was allocated
+   before the run (the gap printed), its K5 /
+   K6 calls equal to the run's launches a step, and its FLOPs over the
+   run's steady step time as TFLOP/s and a share of the bf16 peak; (b)
+   for each run cut by memory (rwkv6-3b, minicpm3-4b, deepseek-moe-16b,
+   llava-next-mistral-7b) the deepest cut whose predicted peak fits
+   ``torch.cuda.mem_get_info()``'s total (each depth's peak on the line
+   through the cut's and the next layer's, the deepest confirmed by its
+   own dry run), and the run's cut no deeper;
+   (c) full-size llama3.2-1b and deepseek-moe-16b train / prefill / decode
+   cells on the (16, 16) mesh, printed; (d) no launch count moves;
+15. **report** — one ``{"kernels": [...]}`` line (K1-K6; K5 and K6 also
    at the training shapes, K5 also at minicpm3's MLA shape, the MoE
    configs' shapes, the VLM's and zamba2's paths and seamless's four
    calls), the card's name
@@ -305,9 +320,6 @@ SRC = os.path.join(ROOT, "src")
 
 SEED = 0
 TOL = 1e-5               # rtol and atol, float32 kernel vs float32 plain
-FP32_FLOPS = 67e12       # H100 SXM, float32 outside the tensor cores
-BF16_FLOPS = 989e12      # H100 SXM, bf16 tensor cores, dense
-HBM_BYTES = 3.35e12      # H100 SXM, bytes/s
 SOURCES = {"pinn_mlp_fwd1": "src/repro_torch/csrc/pinn_mlp_fwd.cu",
            "pinn_mlp_fwd2": "src/repro_torch/csrc/pinn_mlp_fwd.cu",
            "pinn_mlp_fwd2_res": "src/repro_torch/csrc/pinn_mlp_fwd.cu",
@@ -446,6 +458,16 @@ LM_LEARN = 0.9           # ... after which the loss is <= 0.9 x the first
 # parsing a trace costs ~15 s a step of ~20,000 device events (zamba2,
 # seamless), so one step, not three, keeps the script inside its limit
 LM_TRACE_STEPS = 1
+# the dryrun phase: each LM_TRAIN run's training step traced on the meta
+# device (launch.dryrun) at its config, depth cut and batch on a (1, 1)
+# mesh; its predicted peak within DRYRUN_PEAK_TOL of the run's
+# torch.cuda.max_memory_allocated less what was allocated before the run
+# (gaps of 0.11-0.21 % on the H100); the deepest cut whose predicted peak
+# fits the card for the configs LM_TRAIN cuts by memory; the full-size
+# cells of DRYRUN_FULL on the (16, 16) production mesh
+DRYRUN_PEAK_TOL = 0.02
+DRYRUN_FULL = ("llama3.2-1b", "deepseek-moe-16b")
+DRYRUN_FULL_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 # the serving path's shape (width, depth, points per subdomain): the served
 # Burgers net at a serving batch; timing() runs it with n_sub=4, d_in=2
 MAIN = (24, 4, 512)
@@ -667,6 +689,14 @@ def sweep(dev) -> dict:
     return worst
 
 
+def _peaks() -> tuple[float, float, float]:
+    """(HBM bytes/s, bf16 FLOP/s, float32 FLOP/s): the H100 SXM datasheet's
+    peaks, from ``launch/mesh.py``."""
+    from repro_torch.launch import mesh
+
+    return mesh.HBM_BW, mesh.PEAK_FLOPS_BF16, mesh.PEAK_FLOPS_FP32
+
+
 def bound(n_sub, m, d_in, width, depth, n_out, d2) -> tuple[float, str]:
     """Least time (ms) for the work of one call, and what bounds it."""
     dims = [d_in] + [width] * depth + [n_out]
@@ -680,7 +710,8 @@ def bound(n_sub, m, d_in, width, depth, n_out, d2) -> tuple[float, str]:
     n_params = sum(a * b + b for a, b in zip(dims[:-1], dims[1:])) + depth
     rows_out = 1 + d_in + (d_in if order2 else 0)
     nbytes = 4 * n_sub * (m * d_in + n_params + m * n_out * rows_out)
-    t_bytes, t_ops = nbytes / HBM_BYTES, flops / FP32_FLOPS
+    hbm, _, fp32 = _peaks()
+    t_bytes, t_ops = nbytes / hbm, flops / fp32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -1061,7 +1092,8 @@ def train_bound(n_sub, m, d_in, width, depth, n_out, ns, kernel):
                  + m * d_in + n_params)
     flops *= n_sub * m
     nbytes = 4 * n_sub * words
-    t_bytes, t_ops = nbytes / HBM_BYTES, flops / FP32_FLOPS
+    hbm, _, fp32 = _peaks()
+    t_bytes, t_ops = nbytes / hbm, flops / fp32
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations", nbytes, flops)
 
@@ -2367,35 +2399,27 @@ def lm_sweep(dev) -> dict:
 
 def fa_bound(B, S, H, Hk, dh, nbytes_el=2, dv=None, T=None,
              causal=True) -> tuple[float, str, int, int]:
-    """K5, S queries over T keys (T = S unless given): q and o read and
-    written over S, k and v over T, once each (q, k dh wide, v and o dv
-    wide, dh unless given); 2 (dh + dv) FLOP per visible (query, key) pair
-    and head (the scores and the P V product).  Causal (top-left) query s
-    sees min(s + 1, T) keys, S (S + 1) / 2 pairs at S == T; a non-causal
-    call sees S T.  A v narrower than dh counts at its own width: the
-    kernel's zero-padded columns are not work the function needs."""
-    dv = dh if dv is None else dv
-    T = S if T is None else T
-    nbytes = nbytes_el * B * (dh + dv) * (S * H + T * Hk)
-    if not causal:
-        pairs = S * T
-    elif S <= T:
-        pairs = S * (S + 1) // 2
-    else:
-        pairs = T * (T + 1) // 2 + (S - T) * T
-    flops = 2 * (dh + dv) * B * H * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES, flops / BF16_FLOPS
+    """K5's bound: its bytes and FLOPs (``kernels.flash_attention.work``:
+    S queries over T keys, 2 (dh + dv) FLOP per visible pair and head)
+    over HBM and the bf16 tensor-core rate."""
+    from repro_torch.kernels import flash_attention as FA
+
+    nbytes, flops = FA.work(B, S, H, Hk, dh, T=T, dv=dv, causal=causal,
+                            nbytes_el=nbytes_el)
+    hbm, bf16, _ = _peaks()
+    t_bytes, t_ops = nbytes / hbm, flops / bf16
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations", nbytes, flops)
 
 
 def wkv_bound(B, T, H, P) -> tuple[float, str, int, int]:
-    """K6: r, k, v, w read once, y written once, u read once (float32); the
-    recurrence's 4 P^2 FLOP per step and head (the state read through r and
-    its rank-1 update)."""
-    nbytes = 4 * (5 * B * T * H * P + H * P)
-    flops = 4 * P * P * B * T * H
-    t_bytes, t_ops = nbytes / HBM_BYTES, flops / FP32_FLOPS
+    """K6's bound: its bytes and FLOPs (``kernels.wkv6.work``: 4 P^2 FLOP
+    per step and head) over HBM and the float32 rate."""
+    from repro_torch.kernels import wkv6 as WK
+
+    nbytes, flops = WK.work(B, T, H, P)
+    hbm, _, fp32 = _peaks()
+    t_bytes, t_ops = nbytes / hbm, flops / fp32
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations", nbytes, flops)
 
@@ -3223,6 +3247,7 @@ def lm_train_phase(dev) -> dict:
                 argv += ["--ckpt-every", str(LM_CKPT_EVERY)]
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
+            allocated_before = torch.cuda.memory_allocated()
             _reset_lm_counts()
             t0 = time.perf_counter()
             with _moe_aux() as auxes:
@@ -3247,6 +3272,8 @@ def lm_train_phase(dev) -> dict:
                    / _steady_ms(run["step_s"]),
                    "max_memory_allocated_gb":
                    torch.cuda.max_memory_allocated() / 1e9,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "memory_allocated_before": allocated_before,
                    "steps_s": sum(run["step_s"]), "launches": counts}
             if auxes:   # MoE: the load-balance term (1.0 when balanced)
                 aux = [float(a) for a in auxes]
@@ -3429,6 +3456,158 @@ def lm_train_phase(dev) -> dict:
     return res
 
 
+# ------------------------------------------------------------------ dry run
+
+def _all_launches() -> dict:
+    """Every kernel wrapper's launch and plain-call counts (K1-K6)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import pinn_mlp as PM
+    from repro_torch.kernels import wkv6 as WK
+
+    return {**PM.launches, **PM.plain_calls, **FA.launches, **FA.plain_calls,
+            **WK.launches, **WK.plain_calls}
+
+
+def _train_peak(name, n_layers) -> dict:
+    """The dry run of LM_TRAIN[name]'s training step at ``n_layers`` on a
+    (1, 1) mesh."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cell = LM_TRAIN[name]
+    cfg = _lm_cfg(name)
+    if n_layers != cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return dryrun.lower_cell(
+        name, None, cfg_override=cfg,
+        mesh=make_production_mesh(shape=(1, 1)),
+        shape_override=ShapeConfig("lm_train", cell["seq"], cell["batch"],
+                                   "train"))[1]
+
+
+def _deepest_fit(name, cut, peak_at_cut, total) -> dict:
+    """The deepest depth whose predicted peak fits ``total`` bytes.  A
+    homogeneous stack adds the same bytes a layer (dry runs at other
+    depths agree with the line to the byte), so the cut's peak and the
+    next layer's give every depth's; the deepest that fits is then
+    dry-run to confirm it."""
+    from repro_torch.configs import get_config
+
+    full = get_config(name).n_layers
+    peaks = {cut: peak_at_cut}
+
+    def peak(n):
+        if n not in peaks:
+            peaks[n] = _train_peak(name, n)["peak_bytes"]
+        return peaks[n]
+
+    slope = max(1, peak(cut + 1) - peak_at_cut) if cut < full else 1
+
+    def line(n):
+        return peak_at_cut + (n - cut) * slope
+
+    n = cut
+    while n < full and line(n + 1) <= total:
+        n += 1
+    while n > 1 and peak(n) > total:   # the line's deepest, confirmed
+        n -= 1
+    return {"deepest_fit": n, "full_depth": full,
+            "peak_at_deepest": peak(n),
+            "line_one_deeper": line(n + 1) if n < full else None,
+            "dry_runs": {k: peaks[k] for k in sorted(peaks)}}
+
+
+def dryrun_phase(dev, lm_train) -> dict:
+    """The dry run (``launch.dryrun``) against the card (the docstring's
+    phase 14): (a) each LM_TRAIN run's step predicted against what the lm
+    train phase measured (peak, K5/K6 launches a step, FLOPs over the
+    step's time); (b) the deepest cut that fits the card for the configs
+    cut by memory; (c) full-size cells on the (16, 16) mesh; (d) no launch
+    counter moves."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_bytes, tree_count
+
+    smi = _smi()
+    counts_before = _all_launches()
+    res = {"card": smi, "tol": DRYRUN_PEAK_TOL}
+    # (a) each LM_TRAIN run's step
+    t_part = time.perf_counter()
+    for name, cell in LM_TRAIN.items():
+        cfg = _lm_cfg(name)
+        t0 = time.perf_counter()
+        rec = _train_peak(name, cfg.n_layers)
+        params = dryrun.param_structs(build_model(cfg, "meta"))
+        row = lm_train[name]
+        # the run's own peak: less what earlier phases left allocated
+        measured = row["max_memory_allocated"] - row["memory_allocated_before"]
+        gap = (rec["peak_bytes"] - measured) / measured
+        per_step = {k: row["launches"].get(k, 0) // cell["steps"]
+                    for k in ("flash_attention", "wkv6")}
+        step_s = row["steady_ms_per_step"] / 1e3
+        out = {"arch": name, "layers": cfg.n_layers, "batch": cell["batch"],
+               "seq": cell["seq"], "params": tree_count(params),
+               "param_bytes": tree_bytes(params),
+               "predicted_peak": rec["peak_bytes"],
+               "peak_in_param_copies": rec["peak_bytes"] / tree_bytes(params),
+               "max_memory_allocated": row["max_memory_allocated"],
+               "run_peak": measured,
+               "memory_allocated_before": row["memory_allocated_before"],
+               "peak_gap": gap, "kernel_calls": rec["kernel_calls"],
+               "card_launches_per_step": per_step, "flops": rec["flops"],
+               "steady_ms_per_step": row["steady_ms_per_step"],
+               "tflops_per_s": rec["flops"] / step_s / 1e12,
+               "share_of_bf16_peak": rec["flops"] / step_s / PEAK_FLOPS_BF16,
+               "dry_run_s": time.perf_counter() - t0}
+        emit({"dryrun_vs_card": out})
+        check(abs(gap) <= DRYRUN_PEAK_TOL,
+              f"{name}: predicted peak {rec['peak_bytes']} vs the run's "
+              f"{measured} ({gap:+.3%})")
+        check(rec["kernel_calls"] == per_step,
+              f"{name}: dry run {rec['kernel_calls']} vs card {per_step}")
+        res[name] = out
+    res["a_seconds"] = time.perf_counter() - t_part
+    # (b) the deepest cut that fits, for the configs cut by memory
+    t_part = time.perf_counter()
+    total = torch.cuda.mem_get_info()[1]
+    res["mem_get_info_total"] = total
+    for name, cell in LM_TRAIN.items():
+        if not cell["layers"]:
+            continue
+        fit = _deepest_fit(name, cell["layers"], res[name]["predicted_peak"],
+                           total)
+        fit["cut_run"] = cell["layers"]
+        emit({"dryrun_deepest_fit": {"arch": name, "total": total, **fit}})
+        check(cell["layers"] <= fit["deepest_fit"],
+              f"{name}: the run's cut {cell['layers']} is deeper than the "
+              f"deepest that fits, {fit['deepest_fit']}")
+        res[name]["fit"] = fit
+    res["b_seconds"] = time.perf_counter() - t_part
+    # (c) full size on the production mesh
+    t_part = time.perf_counter()
+    for name in DRYRUN_FULL:
+        for shape in DRYRUN_FULL_SHAPES:
+            t0 = time.perf_counter()
+            _, rec = dryrun.lower_cell(name, shape)
+            rec["dry_run_s"] = time.perf_counter() - t0
+            emit({"dryrun_full": {k: v for k, v in rec.items()
+                                  if k != "notes"}})
+            check(rec["ok"], f"{name} {shape}: {rec}")
+    res["c_seconds"] = time.perf_counter() - t_part
+    # (d) no launch
+    after = _all_launches()
+    check(after == counts_before,
+          f"launch counts moved during the dry runs: {counts_before} -> "
+          f"{after}")
+    print(smi)
+    return res
+
+
 def _smi() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -3486,11 +3665,16 @@ def main(argv=None) -> int:
         phase("llm serve", llm_serve_phase, dev)
         print(_smi())
         return 0
+    if args.only == "lm_train":
+        phase("build", build_phase)
+        lm_train = phase("lm train", lm_train_phase, dev)
+        phase("dryrun", dryrun_phase, dev, lm_train)
+        print(_smi())
+        return 0
     if args.only:
         phase("build", build_phase)
         phase(args.only, {"distributed": distributed_phase,
-                          "scenarios": scenarios_phase,
-                          "lm_train": lm_train_phase}[args.only], dev)
+                          "scenarios": scenarios_phase}[args.only], dev)
         print(_smi())
         return 0
     phase("build", build_phase)
@@ -3525,6 +3709,7 @@ def main(argv=None) -> int:
     lm_train = phase("lm train", lm_train_phase, dev)
     for k, v in lm_train["launches"].items():
         launches[k] = launches.get(k, 0) + v
+    phase("dryrun", dryrun_phase, dev, lm_train)
 
     kernels = []
     shapes = {"pinn_mlp_fwd1": MAIN, "pinn_mlp_fwd2": MAIN,

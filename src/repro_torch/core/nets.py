@@ -219,19 +219,21 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def _unflatten(t, it):
+    if isinstance(t, dict):
+        out = {k: _unflatten(t[k], it) for k in sorted(t)}
+        return {k: out[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_unflatten(v, it) for v in t)
+    return next(it)
+
+
 def tree_unflatten(like, leaves):
     """Rebuild ``like``'s structure from leaves in :func:`tree_leaves`
-    order."""
-    it = iter(leaves)
-
-    def rec(t):
-        if isinstance(t, dict):
-            out = {k: rec(t[k]) for k in sorted(t)}
-            return {k: out[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(rec(v) for v in t)
-        return next(it)
-    return rec(like)
+    order.  No recursive closure: one that refers to itself is a reference
+    cycle, which would keep ``leaves`` (an LM step's gradients) alive until
+    the cyclic collector runs."""
+    return _unflatten(like, iter(leaves))
 
 
 def params_from_numpy(tree, device=None, dtype=torch.float32):

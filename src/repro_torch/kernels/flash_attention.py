@@ -33,7 +33,14 @@ headers say what bounds them and how they are tiled.  This module holds
   kernel; ``producers`` counts the bf16 kernel's launches by how its tiles
   went in (``tma`` or ``loads``);
 * ``plain_calls``: the plain version's calls on CUDA tensors (prefill on a
-  card leaves it at 0).
+  card leaves it at 0);
+* :func:`work` — the bytes and FLOPs the function needs for one call (the
+  card check's bound and the dry run's count);
+* ``meta_calls`` / ``meta_work`` / ``meta_reads``: on meta tensors (the
+  dry run, ``launch.dryrun``) the wrapper launches nothing: it returns an
+  empty output of the kernel's shape and dtype, adds one to
+  ``meta_calls``, :func:`work`'s count to ``meta_work`` and the storages
+  the kernel would read to ``meta_reads``, never to ``launches``.
 
 Layout: the model's, q (B, S, H, dh), k (B, T, Hk, dh) and v (B, T, Hk,
 dv) with H a multiple of Hk (query head h reads kv head h // (H / Hk)) and
@@ -77,12 +84,46 @@ launches = {"flash_attention": 0, "flash_attention_sm90": 0,
 producers = {"tma": 0, "loads": 0}
 plain_calls = {"flash_attention_plain": 0}
 recomputes = {"flash_attention_vjp": 0}
+meta_calls = {"flash_attention": 0}
+meta_work = {"bytes": 0, "flops": 0}
+meta_reads = set()   # ``untyped_storage()._cdata`` of the inputs
 
 
 def reset_launch_counts() -> None:
     for counts in (launches, producers, plain_calls, recomputes):
         for name in counts:
             counts[name] = 0
+    reset_meta_counts()
+
+
+def reset_meta_counts() -> None:
+    """Zero the meta branch's counts alone (the dry run's)."""
+    for counts in (meta_calls, meta_work):
+        for name in counts:
+            counts[name] = 0
+    meta_reads.clear()
+
+
+def work(B, S, H, Hk, dh, *, T=None, dv=None, causal=True,
+         nbytes_el=2) -> tuple[int, int]:
+    """(bytes, FLOPs) of one call, S queries over T keys (T = S unless
+    given): q and o read and written over S, k and v over T, once each (q,
+    k dh wide, v and o dv wide, dh unless given); 2 (dh + dv) FLOP per
+    visible (query, key) pair and head (the scores and the P V product).
+    Causal (top-left) query s sees min(s + 1, T) keys, S (S + 1) / 2 pairs
+    at S == T; a non-causal call sees S T.  A v narrower than dh counts at
+    its own width: the kernel's zero-padded columns are not work the
+    function needs."""
+    dv = dh if dv is None else dv
+    T = S if T is None else T
+    nbytes = nbytes_el * B * (dh + dv) * (S * H + T * Hk)
+    if not causal:
+        pairs = S * T
+    elif S <= T:
+        pairs = S * (S + 1) // 2
+    else:
+        pairs = T * (T + 1) // 2 + (S - T) * T
+    return nbytes, 2 * (dh + dv) * B * H * pairs
 
 
 # ------------------------------------------------------------ plain versions
@@ -138,7 +179,8 @@ def flash_attention(q, k, v, *, causal=True, block_q=512):
 
     CPU tensors take the plain version (``block_q`` bounds its scores'
     memory; the kernels tile by their own sizes); CUDA tensors launch the
-    kernel of their dtype or raise."""
+    kernel of their dtype or raise; meta tensors are counted, not launched
+    (``meta_calls``)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, block_q=block_q)
     return _launch(q, k, v, causal)
@@ -198,7 +240,7 @@ def _library(stem: str):
 def _check(q, k, v):
     """Raise on inputs the kernel does not take."""
     name = "flash_attention"
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name}: the CUDA path needs CUDA tensors, got "
                          f"{q.device}")
     for n, t in (("k", k), ("v", v)):
@@ -240,6 +282,15 @@ def _launch(q, k, v, causal):
     o = torch.empty_like(q)
     if S == 0 or B == 0:
         return o[..., :dv]
+    if q.device.type == "meta":
+        # the dry run: the kernel's allocations, its work counted, no launch
+        nbytes, flops = work(B, S, H, Hk, dh, T=T, dv=dv, causal=causal,
+                             nbytes_el=q.element_size())
+        meta_calls["flash_attention"] += 1
+        meta_work["bytes"] += nbytes
+        meta_work["flops"] += flops
+        meta_reads.update(t.untyped_storage()._cdata for t in (q, k, v))
+        return o if dv == dh else o[..., :dv]
     bf16 = q.dtype == torch.bfloat16
     stem = "flash_attention_sm90" if bf16 else "flash_attention"
     fwd, err = _library(stem)

@@ -26,7 +26,14 @@ out).  This module holds
   ``wkv6_scan`` and ``wkv6_out`` those of each device kernel (one each per
   call);
 * ``plain_calls``: the plain version's calls on CUDA tensors (prefill on a
-  card leaves it at 0).
+  card leaves it at 0);
+* :func:`work` — the bytes and FLOPs the function needs for one call (the
+  card check's bound and the dry run's count);
+* ``meta_calls`` / ``meta_work`` / ``meta_reads``: on meta tensors (the
+  dry run, ``launch.dryrun``) the wrapper launches nothing: it makes the
+  kernel's output and scratch as empty meta tensors, adds one to
+  ``meta_calls``, :func:`work`'s count to ``meta_work`` and the storages
+  the kernel would read to ``meta_reads``, never to ``launches``.
 
 Layout: r, k, v, w (B, T, H, P) float32 with w in (0, 1), u (H, P); the
 state (B, H, P, P) is keyed [key channel, value channel].
@@ -45,12 +52,40 @@ P_MAX = 128   # widest head the kernels take
 launches = {"wkv6": 0, "wkv6_chunk": 0, "wkv6_scan": 0, "wkv6_out": 0}
 plain_calls = {"wkv6_plain": 0}
 recomputes = {"wkv6_vjp": 0}
+meta_calls = {"wkv6": 0}
+meta_work = {"bytes": 0, "flops": 0}
+meta_reads = set()   # ``untyped_storage()._cdata`` of the inputs
+_CHUNK = 32   # the kernels' steps per chunk (kC in csrc/wkv6.cu)
 
 
 def reset_launch_counts() -> None:
     for counts in (launches, plain_calls, recomputes):
         for name in counts:
             counts[name] = 0
+    reset_meta_counts()
+
+
+def reset_meta_counts() -> None:
+    """Zero the meta branch's counts alone (the dry run's)."""
+    for counts in (meta_calls, meta_work):
+        for name in counts:
+            counts[name] = 0
+    meta_reads.clear()
+
+
+def work(B, T, H, P) -> tuple[int, int]:
+    """(bytes, FLOPs) of one call: r, k, v, w read once, y written once, u
+    read once (float32); the recurrence's 4 P^2 FLOP per step and head
+    (the state read through r and its rank-1 update)."""
+    return 4 * (5 * B * T * H * P + H * P), 4 * P * P * B * T * H
+
+
+def _scratch_floats(B, T, H, P) -> int:
+    """``wkv6_scratch_floats`` of csrc/wkv6.cu: per (batch, head, chunk)
+    two (chunk, PP) tiles, a (PP, PP) state and a PP decay, P padded to
+    PP in {16, 32, 64, 128}."""
+    PP = next(n for n in (16, 32, 64, 128) if P <= n)
+    return B * H * -(-T // _CHUNK) * (2 * _CHUNK * PP + PP * PP + PP)
 
 
 # ------------------------------------------------------------ plain versions
@@ -115,7 +150,8 @@ def wkv6(r, k, v, w, u, *, chunk=64):
 
     CPU tensors take the plain version (``chunk`` is its chunk); CUDA
     tensors launch the kernels (any T; their chunk of 32 steps is their
-    own, chunking being exact algebra) or raise."""
+    own, chunking being exact algebra) or raise; meta tensors are counted,
+    not launched (``meta_calls``)."""
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, chunk=chunk)
     return _launch(r, k, v, w, u)
@@ -173,7 +209,7 @@ def _library():
 def _check(r, k, v, w, u):
     """Raise on inputs the kernel does not take."""
     name = "wkv6"
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name}: the CUDA path needs CUDA tensors, got "
                          f"{r.device}")
     if r.dim() != 4:
@@ -207,6 +243,18 @@ def _launch(r, k, v, w, u):
     B, T, H, P = r.shape
     y = torch.empty_like(r)
     if B == 0 or T == 0 or H == 0:
+        return y
+    if r.device.type == "meta":
+        # the dry run: the kernel's allocations, its work counted, no launch
+        scratch = torch.empty(_scratch_floats(B, T, H, P),
+                              dtype=torch.float32, device=r.device)
+        nbytes, flops = work(B, T, H, P)
+        meta_calls["wkv6"] += 1
+        meta_work["bytes"] += nbytes
+        meta_work["flops"] += flops
+        meta_reads.update(t.untyped_storage()._cdata
+                          for t in (r, k, v, w, u))
+        del scratch
         return y
     lib = _library()
     # r e^esc, the intra-chunk y and each chunk's state increment (then

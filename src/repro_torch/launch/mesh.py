@@ -1,6 +1,16 @@
-"""Process groups for the distributed trainers: one rank per subdomain.
+"""Process groups for the distributed trainers, and the production meshes.
 
-Counterpart of the reference package's ``launch/mesh.py::make_pinn_mesh``
+Counterpart of the reference package's ``launch/mesh.py``.
+:func:`make_production_mesh` is a plan with no devices behind it: the
+shape and axis names of the reference's production meshes, ``(16, 16)``
+``("data", "model")`` and ``(2, 16, 16)`` ``("pod", "data", "model")``,
+or any other shape asked for; the dry run (``launch/dryrun.py``) lays the
+sharding specs over it to get per-device bytes.  Beside it, the roofline
+peaks of one NVIDIA H100 SXM from NVIDIA's datasheet (dense rates, at the
+700 W power limit): figures the dry run and the card check divide by, not
+measurements.
+
+:func:`make_pinn_mesh` is the reference's ``make_pinn_mesh``
 (a 1-D ``("sub",)`` device mesh, Algorithm 1's communicator).  Here the
 communicator is a ``torch.distributed`` process group of ``n`` ranks, each
 its own process, started on this host by :func:`run_ranks`:
@@ -35,6 +45,68 @@ from repro_torch.device import resolve_device
 
 BACKEND = "gloo"
 TIMEOUT_S = 300.0
+
+# H100 SXM datasheet peaks (dense, no sparsity), per card
+PEAK_FLOPS_BF16 = 989e12     # FLOP/s, bf16 on the tensor cores
+PEAK_FLOPS_FP32 = 67e12      # FLOP/s, float32 outside the tensor cores
+HBM_BW = 3.35e12             # bytes/s, HBM3
+
+
+@dataclass(frozen=True)
+class MeshPlan:
+    """A device mesh's shape and axis names, with no devices behind it."""
+
+    shape: tuple[int, ...]
+    axes: tuple[str, ...]
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def name(self) -> str:
+        return "x".join(str(s) for s in self.shape)
+
+    def size(self, entry) -> int:
+        """Devices a spec entry (an axis name, a tuple of them or None)
+        splits a dim over."""
+        names = () if entry is None else \
+            (entry,) if isinstance(entry, str) else tuple(entry)
+        n = 1
+        for a in names:
+            if a not in self.axes:
+                raise ValueError(f"mesh {self.name} {self.axes} has no axis "
+                                 f"{a!r}")
+            n *= self.shape[self.axes.index(a)]
+        return n
+
+    def shard_shape(self, shape, spec) -> tuple[int, ...]:
+        """One device's shard of an array of ``shape`` under ``spec``: a dim
+        split over n devices takes ceil(dim / n) (XLA pads the last
+        shard)."""
+        if len(spec) > len(shape):
+            raise ValueError(f"spec {spec} has more entries than {shape}")
+        out = list(shape)
+        for i, entry in enumerate(spec):
+            n = self.size(entry)
+            out[i] = -(-out[i] // n)
+        return tuple(out)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         shape: tuple[int, ...] | None = None) -> MeshPlan:
+    """``(16, 16)`` ``("data", "model")``, or with ``multi_pod`` ``(2, 16,
+    16)`` ``("pod", "data", "model")``; ``shape`` asks for another of
+    two or three axes, named alike."""
+    if shape is None:
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = {2: ("data", "model"), 3: ("pod", "data", "model")}.get(len(shape))
+    if axes is None:
+        raise ValueError(f"a production mesh has 2 or 3 axes, got {shape}")
+    return MeshPlan(tuple(int(s) for s in shape), axes)
 
 
 @dataclass(frozen=True)

@@ -2,6 +2,8 @@
 
 Counterpart of the reference package's ``models/api.py``.
 ``build_model(cfg, device)`` returns the family's model object;
+``batch_struct`` builds the batch as meta tensors of the reference's
+shapes and dtypes (int32 tokens; the dry run, no allocation);
 ``make_batch`` builds the same arrays as the reference for the same seed
 (numpy ``default_rng``: integer tokens, and the VLM's ``patch_embeds`` or
 the encoder-decoder's ``frames`` as standard normal draws in the config's
@@ -64,6 +66,17 @@ def _token_shapes(cfg: ModelConfig, shape: ShapeConfig, kind: str):
     if cfg.family == "encdec":
         out["frames"] = ((B, max(1, S // cfg.enc_ratio), cfg.d_model), f)
     return out
+
+
+def batch_struct(cfg: ModelConfig, shape: ShapeConfig,
+                 kind: str | None = None) -> dict:
+    """The batch of ``shape``'s entry point as meta tensors with the
+    reference's dtypes: int32 tokens and labels (``make_batch`` gives the
+    port's int64), float inputs in ``cfg.dtype``."""
+    kind = kind or shape.kind
+    return {k: torch.empty(s, dtype=torch.int32 if d == torch.int64 else d,
+                           device="meta")
+            for k, (s, d) in _token_shapes(cfg, shape, kind).items()}
 
 
 def make_batch(cfg: ModelConfig, shape: ShapeConfig, kind: str | None = None,

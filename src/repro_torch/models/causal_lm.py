@@ -28,11 +28,17 @@ encoder-decoder (``models/encdec.py``) are subclasses.
 
 The model lives on one device, ``cuda`` unless the caller asks for the CPU
 (``build_model(cfg, device="cpu")``); its params and caches are made there.
-The reference's ``logical`` / ``*_specs`` sharding trees have no
-counterpart (one card).
+On the ``meta`` device (the dry run, ``launch/dryrun.py``) ``init`` and
+``init_cache`` give tensors of the right shapes and dtypes with no storage,
+and the entry points trace the step the card runs, the kernels counted, not
+launched.  The reference's sharding trees are ported: ``logical`` (the
+param tree's logical axes), ``param_specs``, ``cache_struct`` and
+``cache_specs`` (``models/sharding.py``); its ``constrain`` hints are not
+(no partitioner).
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, replace
 from typing import Callable
 
@@ -41,13 +47,17 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import add_layer_axis, specs_from_logical
 
 
 @dataclass(frozen=True)
 class BlockDef:
     init: Callable          # (gen, cfg) -> layer params
+    logical: Callable       # (cfg) -> logical tree (stacked L axis first)
     apply: Callable         # (cfg, lp, x, lc, ctx) -> (y, new_lc)
     init_cache: Callable | None = None   # (cfg, B, T, dtype, device) -> per-layer cache
+    cache_logical: Callable | None = None   # (cfg) -> per-layer cache dims
+    reads_pos: bool = True  # decode reads its position (rope, cache index)
 
 
 BLOCKS: dict[str, BlockDef] = {}
@@ -78,6 +88,7 @@ class CausalLM:
         # full forward, and whether remat runs them again in the backward
         self.attn_calls = cfg.n_layers
         self.attn_remat = bool(cfg.remat)
+        self.decode_reads_pos = self.block.reads_pos
         self.device = resolve_device(device)
 
     def _prelude_cfg(self) -> ModelConfig:
@@ -85,6 +96,8 @@ class CausalLM:
                        d_ff=self.cfg.d_ff_dense or self.cfg.d_ff)
 
     def _generator(self, gen) -> torch.Generator:
+        if self.device.type == "meta":
+            return L.MetaDraws()
         if isinstance(gen, torch.Generator):
             return gen
         return torch.Generator(device=self.device).manual_seed(
@@ -116,6 +129,25 @@ class CausalLM:
             }
         return p
 
+    def logical(self) -> dict:
+        """The param tree with tuples of logical axis names for leaves."""
+        cfg = self.cfg
+        t = {
+            "embed": L.embedding_logical(),
+            "layers": self.block.logical(cfg),
+            "final_norm": ("embed",),
+        }
+        if self.prelude:
+            t["prelude"] = self.prelude.logical(self._prelude_cfg())
+        if not cfg.tie_embeddings:
+            t["head"] = L.lm_head_logical()
+        if cfg.family == "vlm":
+            t["vis_proj"] = {"w": (None, "embed"), "b": ("embed",)}
+        return t
+
+    def param_specs(self, rules):
+        return specs_from_logical(self.logical(), rules)
+
     # ------------------------------------------------------------------- cache
     def _stacked_cache(self, block, cfg, n_layers, B, T):
         one = block.init_cache(cfg, B, T, _dtype(cfg), self.device)
@@ -132,6 +164,28 @@ class CausalLM:
             return main
         pre = self._stacked_cache(self.prelude, self._prelude_cfg(),
                                   self.cfg.first_dense, batch_size, seq_len)
+        return {"prelude": pre, "layers": main}
+
+    def on_meta(self):
+        """This model on the meta device: its ``init`` and ``init_cache``
+        give tensors of the right shapes and dtypes and no storage."""
+        meta = copy.copy(self)
+        meta.device = torch.device("meta")
+        return meta
+
+    def cache_struct(self, batch_size: int, seq_len: int):
+        """:meth:`init_cache`'s tree on the meta device (no allocation)."""
+        return self.on_meta().init_cache(batch_size, seq_len)
+
+    def cache_specs(self, rules):
+        if self.block.cache_logical is None:
+            return None
+        main = specs_from_logical(
+            add_layer_axis(self.block.cache_logical(self.cfg)), rules)
+        if not self.prelude:
+            return main
+        pre = specs_from_logical(add_layer_axis(
+            self.prelude.cache_logical(self._prelude_cfg())), rules)
         return {"prelude": pre, "layers": main}
 
     # ----------------------------------------------------------------- forward

@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.causal_lm import BlockDef, register_block
+from repro_torch.models.sharding import add_layer_axis
 
 
 def init(gen, cfg: ModelConfig):
@@ -25,6 +26,15 @@ def init(gen, cfg: ModelConfig):
                            cfg.hd, bias=cfg.qkv_bias),
         "mlp_norm": L.ones(gen, (cfg.d_model,)),
         "mlp": L.init_swiglu(gen, cfg.d_model, cfg.d_ff),
+    }
+
+
+def logical(cfg: ModelConfig):
+    return {
+        "attn_norm": (None, "embed"),
+        "attn": add_layer_axis(L.gqa_logical(bias=cfg.qkv_bias)),
+        "mlp_norm": (None, "embed"),
+        "mlp": add_layer_axis(L.swiglu_logical()),
     }
 
 
@@ -47,6 +57,12 @@ def init_cache(cfg: ModelConfig, B, T, dtype, device):
             "v": torch.zeros(kv, dtype=dtype, device=device)}
 
 
-BLOCK = BlockDef(init=init, apply=apply, init_cache=init_cache)
+def cache_logical(cfg: ModelConfig):
+    dims = ("batch", "kv_seq", "kv_heads", None)
+    return {"k": dims, "v": dims}
+
+
+BLOCK = BlockDef(init=init, logical=logical, apply=apply,
+                 init_cache=init_cache, cache_logical=cache_logical)
 register_block("dense", BLOCK)
 register_block("vlm", BLOCK)

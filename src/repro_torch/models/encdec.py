@@ -24,8 +24,9 @@ step).  The cross cache is filled once from the encoded frames
 (:meth:`EncDecModel.fill_cross_cache`), as the reference's ``serve`` and
 tests fill theirs.
 
-The reference's ``logical`` / ``*_specs`` sharding trees have no
-counterpart (one card).
+The reference's ``logical`` / ``cache_specs`` sharding trees are ported
+(``models/sharding.py``); its ``constrain`` hints are not (the port has
+no partitioner).
 """
 from __future__ import annotations
 
@@ -36,10 +37,15 @@ from repro_torch.core.nets import map_tree
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.causal_lm import CausalLM, _dtype
+from repro_torch.models.sharding import add_layer_axis, specs_from_logical
 
 
 def _ln_init(gen, d):
     return {"w": L.ones(gen, (d,)), "b": L.zeros(gen, (d,))}
+
+
+def _ln_logical():
+    return {"w": (None, "embed"), "b": (None, "embed")}
 
 
 def _ln(x, p, eps):
@@ -78,6 +84,7 @@ class EncDecModel(CausalLM):
         # K5 once an encoder layer, twice a decoder layer, all under remat
         self.attn_calls = cfg.n_layers + 2 * cfg.n_dec_layers
         self.attn_remat = bool(cfg.remat)
+        self.decode_reads_pos = True
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ params
@@ -98,7 +105,37 @@ class EncDecModel(CausalLM):
             "head": L.init_lm_head(g, cfg.d_model, cfg.padded_vocab),
         }
 
+    def logical(self) -> dict:
+        """``enc`` / ``dec`` stacked (their norms carry the L axis),
+        ``enc_norm`` / ``final_norm`` single."""
+        enc_l = {
+            "attn_norm": _ln_logical(),
+            "attn": add_layer_axis(L.gqa_logical()),
+            "mlp_norm": _ln_logical(),
+            "mlp": add_layer_axis(L.gelu_mlp_logical()),
+        }
+        dec_l = {
+            "self_norm": _ln_logical(),
+            "self_attn": add_layer_axis(L.gqa_logical()),
+            "cross_norm": _ln_logical(),
+            "cross_attn": add_layer_axis(L.gqa_logical()),
+            "mlp_norm": _ln_logical(),
+            "mlp": add_layer_axis(L.gelu_mlp_logical()),
+        }
+        single_ln = {"w": ("embed",), "b": ("embed",)}
+        return {
+            "embed": L.embedding_logical(), "enc": enc_l, "dec": dec_l,
+            "enc_norm": single_ln, "final_norm": single_ln,
+            "head": L.lm_head_logical(),
+        }
+
     # ------------------------------------------------------------------- cache
+    def cache_specs(self, rules):
+        dims = (None, "batch", "kv_seq", "kv_heads", None)
+        return specs_from_logical(
+            {k: dims for k in ("self_k", "self_v", "cross_k", "cross_v")},
+            rules)
+
     def init_cache(self, batch_size: int, seq_len: int):
         """Zero self K/V over ``seq_len`` and cross K/V over ``max(1,
         seq_len // enc_ratio)`` frames, stacked over the decoder layers."""
@@ -169,7 +206,7 @@ class EncDecModel(CausalLM):
                                          pos=pos, causal=True, plain=plain)
             h = h + out
             a = _ln(h, lp["cross_norm"], cfg.norm_eps)
-            q, _, _ = L.gqa_project(lp["cross_attn"], a, H, Hk, dh, dtype)
+            q = L.gqa_query(lp["cross_attn"], a, H, dh, dtype)
             if lc is None:   # teacher-forced: cross K/V from the memory
                 _, mk, mv = L.gqa_project(lp["cross_attn"], memory, H, Hk, dh,
                                           dtype)

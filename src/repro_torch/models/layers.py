@@ -31,7 +31,11 @@ conventions:
   (the reference's ``jax.checkpoint`` per chunk), so the float32 (B, S, V)
   logits never exist.
 
-``constrain`` (GSPMD sharding hints) has no counterpart: one card.
+* Every init function has a twin ``*_logical`` returning the same tree
+  with tuples of LOGICAL axis names for leaves (the reference's; mapped to
+  mesh axes by ``models/sharding.py``).  The reference's ``constrain``
+  (GSPMD sharding hints on activations) has no counterpart: the port has
+  no partitioner.
 """
 from __future__ import annotations
 
@@ -47,8 +51,19 @@ from repro_torch.kernels import flash_attention as FA
 # ------------------------------------------------------------------------- init
 
 
+class MetaDraws:
+    """Stands for a generator on the meta device, which torch has not: the
+    dry run's params (``launch.dryrun``) need shapes and dtypes, no
+    values."""
+
+    device = torch.device("meta")
+
+
 def normal_init(gen, shape, std=0.02):
-    """N(0, std^2) float32 on ``gen``'s device."""
+    """N(0, std^2) float32 on ``gen``'s device (on the meta device, an
+    empty tensor of the shape)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, device=gen.device)
     return torch.randn(shape, generator=gen, device=gen.device) * std
 
 
@@ -179,16 +194,34 @@ def init_gqa(gen, d_model, n_heads, n_kv, head_dim, bias=False, std=0.02):
     return p
 
 
-def gqa_project(p, x, n_heads, n_kv, head_dim, dtype):
+def gqa_logical(bias=False):
+    p = {
+        "wq": ("embed", "heads"), "wk": ("embed", "heads"),
+        "wv": ("embed", "heads"), "wo": ("heads", "embed"),
+    }
+    if bias:
+        p.update({"bq": ("heads",), "bk": ("heads",), "bv": ("heads",)})
+    return p
+
+
+def gqa_query(p, x, n_heads, head_dim, dtype):
+    """The query projection of :func:`gqa_project` alone (B, S, H, dh)."""
     B, S, _ = x.shape
     q = x @ p["wq"].to(dtype)
+    if "bq" in p:
+        q = q + p["bq"].to(dtype)
+    return q.reshape(B, S, n_heads, head_dim)
+
+
+def gqa_project(p, x, n_heads, n_kv, head_dim, dtype):
+    B, S, _ = x.shape
+    q = gqa_query(p, x, n_heads, head_dim, dtype)
     k = x @ p["wk"].to(dtype)
     v = x @ p["wv"].to(dtype)
     if "bq" in p:
-        q = q + p["bq"].to(dtype)
         k = k + p["bk"].to(dtype)
         v = v + p["bv"].to(dtype)
-    return (q.reshape(B, S, n_heads, head_dim),
+    return (q,
             k.reshape(B, S, n_kv, head_dim),
             v.reshape(B, S, n_kv, head_dim))
 
@@ -243,6 +276,11 @@ def init_swiglu(gen, d_model, d_ff, std=0.02):
     }
 
 
+def swiglu_logical():
+    return {"wi": ("embed", "ff"), "wg": ("embed", "ff"),
+            "wo": ("ff", "embed")}
+
+
 def swiglu(p, x):
     dt = x.dtype
     h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wi"].to(dt))
@@ -258,6 +296,11 @@ def init_gelu_mlp(gen, d_model, d_ff, std=0.02):
     }
 
 
+def gelu_mlp_logical():
+    return {"wi": ("embed", "ff"), "bi": ("ff",), "wo": ("ff", "embed"),
+            "bo": ("embed",)}
+
+
 def gelu_mlp(p, x):
     """The reference's ``jax.nn.gelu`` is the tanh approximation."""
     dt = x.dtype
@@ -269,6 +312,10 @@ def gelu_mlp(p, x):
 
 def init_embedding(gen, vocab, d_model, std=0.02):
     return {"table": normal_init(gen, (vocab, d_model), std)}
+
+
+def embedding_logical():
+    return {"table": ("vocab", "embed")}
 
 
 def embed(p, tokens, dtype):
@@ -293,6 +340,10 @@ def init_lm_head(gen, d_model, vocab, std=0.02):
     return {"w": normal_init(gen, (d_model, vocab), std)}
 
 
+def lm_head_logical():
+    return {"w": ("embed", "vocab")}
+
+
 def lm_head(p, x, n_valid=None):
     return _mask_padded_vocab(x @ p["w"].to(x.dtype), n_valid)
 
@@ -302,7 +353,9 @@ def lm_head(p, x, n_valid=None):
 def _token_nll(logits, labels):
     """Per-token NLL: log-sum-exp of the logits less the label's logit."""
     lse = torch.logsumexp(logits, dim=-1)
-    return lse - torch.gather(logits, -1, labels[..., None])[..., 0]
+    # gather takes int64 indices; the dry run's batch holds the
+    # reference's int32 labels
+    return lse - torch.gather(logits, -1, labels[..., None].long())[..., 0]
 
 
 def cross_entropy(logits, labels, mask=None):

@@ -15,9 +15,9 @@ absorbed into the query and ``wuv`` into the output, so decode attends over
 an effective head of ``kv_lora + rope_dim`` with float32 scores, softmax and
 context.
 
-The reference's ``logical`` / ``cache_logical`` sharding trees and its
-``constrain`` hints are not ported: the model lives on one card (ROADMAP
-Queue 1).
+The reference's ``logical`` / ``cache_logical`` sharding trees are ported
+(``models/sharding.py``); its ``constrain`` hints are not (the port has no
+partitioner).
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.causal_lm import BlockDef, register_block
+from repro_torch.models.sharding import add_layer_axis
 
 
 def init(gen, cfg: ModelConfig):
@@ -136,5 +137,24 @@ def init_cache(cfg: ModelConfig, B, T, dtype, device):
                               device=device)}
 
 
-BLOCK = BlockDef(init=init, apply=apply, init_cache=init_cache)
+def logical(cfg: ModelConfig):
+    return {
+        "attn_norm": (None, "embed"),
+        "attn": add_layer_axis({
+            "wdq": ("embed", None), "q_norm": (None,), "wuq": (None, "heads"),
+            "wdkv": ("embed", None), "kv_norm": (None,),
+            "wkr": ("embed", None), "wuk": (None, "heads"),
+            "wuv": (None, "heads"), "wo": ("heads", "embed"),
+        }),
+        "mlp_norm": (None, "embed"),
+        "mlp": add_layer_axis(L.swiglu_logical()),
+    }
+
+
+def cache_logical(cfg: ModelConfig):
+    return {"ckv": ("batch", "kv_seq", None), "kr": ("batch", "kv_seq", None)}
+
+
+BLOCK = BlockDef(init=init, logical=logical, apply=apply,
+                 init_cache=init_cache, cache_logical=cache_logical)
 register_block("mla", BLOCK)

@@ -44,6 +44,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import dense
 from repro_torch.models import layers as L
 from repro_torch.models.causal_lm import BlockDef, register_block
+from repro_torch.models.sharding import add_layer_axis
 
 
 def init(gen, cfg: ModelConfig):
@@ -62,6 +63,23 @@ def init(gen, cfg: ModelConfig):
     }
     if cfg.n_shared_experts:
         p["shared"] = L.init_swiglu(gen, d, cfg.n_shared_experts * de)
+    return p
+
+
+def logical(cfg: ModelConfig):
+    p = {
+        "attn_norm": (None, "embed"),
+        "attn": add_layer_axis(L.gqa_logical(bias=cfg.qkv_bias)),
+        "mlp_norm": (None, "embed"),
+        "router": (None, "embed", None),
+        "experts": {
+            "wi": (None, "expert", "embed", None),
+            "wg": (None, "expert", "embed", None),
+            "wo": (None, "expert", None, "embed"),
+        },
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = add_layer_axis(L.swiglu_logical())
     return p
 
 
@@ -104,18 +122,20 @@ def moe_ffn(cfg: ModelConfig, p, x):
     xg = x.reshape(G, t, d)
     probs, gate, idx = route(cfg, p, xg)
 
-    # load-balance aux (Switch-style): E * sum_e f_e * p_e
+    e_flat = idx.reshape(G, t * k)                       # token-major slots
+    counts = torch.zeros((G, E), dtype=torch.int64, device=x.device)
+    counts.scatter_add_(1, e_flat, torch.ones_like(e_flat))
+
+    # load-balance aux (Switch-style): E * sum_e f_e * p_e, f_e from the
+    # slots' counts (the reference's bincount, which has no meta kernel)
     me = probs.mean(dim=(0, 1))
-    ce = torch.bincount(idx.reshape(-1), minlength=E).float() / (T * k)
+    ce = counts.sum(dim=0).float() / (T * k)
     aux = E * torch.sum(me * ce)
 
     C = capacity(cfg, t)
-    e_flat = idx.reshape(G, t * k)                       # token-major slots
     # one batched stable sort: a slot's position is its rank in its expert
     order = torch.argsort(e_flat, dim=-1, stable=True)
     e_sorted = torch.gather(e_flat, 1, order)
-    counts = torch.zeros((G, E), dtype=torch.int64, device=x.device)
-    counts.scatter_add_(1, e_flat, torch.ones_like(e_flat))
     starts = torch.cumsum(counts, dim=1) - counts
     pos_sorted = torch.arange(t * k, device=x.device) - \
         torch.gather(starts, 1, e_sorted)
@@ -171,5 +191,6 @@ def apply(cfg: ModelConfig, lp, x, lc, ctx):
 
 
 # the dense block's KV cache
-register_block("moe", BlockDef(init=init, apply=apply,
-                               init_cache=dense.init_cache))
+register_block("moe", BlockDef(init=init, logical=logical, apply=apply,
+                               init_cache=dense.init_cache,
+                               cache_logical=dense.cache_logical))

@@ -40,6 +40,9 @@ forward, the chunked plain version's VJP by recompute in the backward);
 ``plain=True`` takes the plain version, differentiable by autograd.
 Decode is the O(1) recurrent state update (``_wkv6_step``) in plain
 torch, as in the reference.
+
+Both blocks carry the reference's ``*_logical`` / ``*_cache_logical``
+sharding trees (``models/sharding.py``).
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import wkv6 as WK
 from repro_torch.models import layers as L
 from repro_torch.models.causal_lm import BlockDef, register_block
+from repro_torch.models.sharding import add_layer_axis
 
 
 # ================================================================== Mamba2 (SSD)
@@ -202,8 +206,24 @@ def mamba2_cache(cfg: ModelConfig, B, T, dtype, device):
     }
 
 
-register_block("ssm", BlockDef(init=mamba2_init, apply=mamba2_apply,
-                               init_cache=mamba2_cache))
+def mamba2_logical(cfg: ModelConfig):
+    return {
+        "norm": (None, "embed"),
+        "in_proj": (None, "embed", "ff"),
+        "conv_w": (None, None, "ff"),
+        "A_log": (None, "ff"), "D": (None, "ff"), "dt_bias": (None, "ff"),
+        "out_norm": (None, "ff"),
+        "out_proj": (None, "ff", "embed"),
+    }
+
+
+def mamba2_cache_logical(cfg: ModelConfig):
+    return {"ssm": ("batch", "ff", None, None), "conv": ("batch", None, "ff")}
+
+
+register_block("ssm", BlockDef(init=mamba2_init, logical=mamba2_logical,
+                               apply=mamba2_apply, init_cache=mamba2_cache,
+                               cache_logical=mamba2_cache_logical))
 
 
 # ===================================================================== RWKV6
@@ -320,5 +340,34 @@ def rwkv6_cache(cfg: ModelConfig, B, T, dtype, device):
     }
 
 
-register_block("rwkv", BlockDef(init=rwkv6_init, apply=rwkv6_apply,
-                                init_cache=rwkv6_cache))
+def rwkv6_logical(cfg: ModelConfig):
+    dd = (None, "embed", "heads")
+    return {
+        "tm_norm": (None, "embed"),
+        "tm": {
+            "mu_r": (None, "embed"), "mu_k": (None, "embed"),
+            "mu_v": (None, "embed"), "mu_w": (None, "embed"),
+            "mu_g": (None, "embed"),
+            "wr": dd, "wk": dd, "wv": dd, "wg": dd, "w_decay": dd,
+            "decay_bias": (None, "heads"), "u_bonus": (None, "heads"),
+            "wo": (None, "heads", "embed"), "ln_w": (None, "embed"),
+        },
+        "cm_norm": (None, "embed"),
+        "cm": {"mu_k": (None, "embed"), "wk": (None, "embed", "ff"),
+               "wv": (None, "ff", "embed")},
+    }
+
+
+def rwkv6_cache_logical(cfg: ModelConfig):
+    # 40 heads don't divide the 16-way model axis; the recurrent state is
+    # tiny (no sequence dim), so batch-shard only
+    return {"wkv": ("batch", None, None, None),
+            "tm_shift": ("batch", None, "act_embed"),
+            "cm_shift": ("batch", None, "act_embed")}
+
+
+# the recurrent decode has no rope and no position-indexed cache
+register_block("rwkv", BlockDef(init=rwkv6_init, logical=rwkv6_logical,
+                                apply=rwkv6_apply, init_cache=rwkv6_cache,
+                                cache_logical=rwkv6_cache_logical,
+                                reads_pos=False))

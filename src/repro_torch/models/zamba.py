@@ -22,6 +22,8 @@ from repro_torch.models import dense as dense_mod
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.causal_lm import CausalLM, _dtype
+from repro_torch.models.sharding import (add_layer_axis, map_logical,
+                                         specs_from_logical)
 
 
 class Zamba2Model(CausalLM):
@@ -34,6 +36,7 @@ class Zamba2Model(CausalLM):
         self.tail = cfg.n_layers % cfg.attn_every
         # the shared attention (K5) once a stage, outside remat
         self.attn_calls, self.attn_remat = self.n_stages, False
+        self.decode_reads_pos = True
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ params
@@ -52,7 +55,28 @@ class Zamba2Model(CausalLM):
             "head": L.init_lm_head(g, cfg.d_model, cfg.padded_vocab),
         }
 
+    def logical(self) -> dict:
+        """``mamba`` stacked, ``shared_attn`` the dense block's tree
+        without its L axis."""
+        cfg = self.cfg
+        return {
+            "embed": L.embedding_logical(),
+            "mamba": ssm_mod.mamba2_logical(cfg),
+            "shared_attn": map_logical(lambda d: d[1:],
+                                       dense_mod.logical(cfg)),
+            "final_norm": ("embed",),
+            "head": L.lm_head_logical(),
+        }
+
     # ------------------------------------------------------------------- cache
+    def cache_specs(self, rules):
+        return {
+            "mamba": specs_from_logical(
+                add_layer_axis(ssm_mod.mamba2_cache_logical(self.cfg)), rules),
+            "attn": specs_from_logical(
+                add_layer_axis(dense_mod.cache_logical(self.cfg)), rules),
+        }
+
     def init_cache(self, batch_size: int, seq_len: int):
         """``mamba`` stacked over the layers, ``attn`` over the stages."""
         cfg, dt, dev = self.cfg, _dtype(self.cfg), self.device

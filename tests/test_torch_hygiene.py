@@ -58,7 +58,8 @@ def test_scan_sees_the_whole_port():
                  "optim/compress.py", "launch/mesh.py", "launch/train.py",
                  "optim/lbfgs.py", "obs/profiling.py",
                  "launch/inverse_heat_map.py",
-                 "launch/navier_stokes_cavity.py"):
+                 "launch/navier_stokes_cavity.py", "models/sharding.py",
+                 "launch/dryrun.py", "utils/__init__.py"):
         assert must in names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core") and not _forbidden("jaxtyping_x")
@@ -81,3 +82,20 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert int(res.stdout.split()[-1]) >= 20
+
+
+def test_sharding_rules_are_a_torch_free_copy():
+    """``models/sharding.py`` imports neither torch nor JAX, and its rule
+    tables are the reference's, for every combination of ``rules_for``."""
+    import itertools
+
+    from repro.models import sharding as ref
+    from repro_torch.models import sharding as port
+
+    assert not [m for m in _imports(PORT / "models" / "sharding.py")
+                if m.split(".")[0] in ("torch", "jax", "repro")]
+    for name in ("SINGLE_POD_RULES", "MULTI_POD_RULES", "DECODE_OVERRIDES",
+                 "LONG_CONTEXT_OVERRIDES"):
+        assert getattr(port, name) == getattr(ref, name), name
+    for flags in itertools.product((False, True), repeat=3):
+        assert port.rules_for(*flags) == ref.rules_for(*flags), flags
