@@ -6,7 +6,8 @@
     python3 chip_smoke.py --only distributed   # build + phase 7 only
     python3 chip_smoke.py --only scenarios     # build + phase 8 only
     python3 chip_smoke.py --only lm            # build + phases 9-12 only
-    python3 chip_smoke.py --only lm_train      # build + phases 13-14 only
+    python3 chip_smoke.py --only lm_train      # build + phases 13, 15 only
+    python3 chip_smoke.py --only ep            # build + phase 14 only
 
 Run from the root of a checkout.  With ``--ab DIR`` only the build and an
 A/B runs: this checkout's K3 and K4 and the ones built from
@@ -87,11 +88,15 @@ any of them ends the run with a non-zero exit code and no result line:
    on and off in turns (on, off, off, on: ms per step, compute and
    communication), the bytes staged through the host per step, the
    ``dd-comp-forward`` / ``dd-comm-halo`` / ``dd-comp-update`` scopes of
-   20 steps under torch.profiler on rank 0, and the single-process
-   trainer's ms per step after the group; (c) ``DataParallelTrainer`` on
+   20 steps under torch.profiler on rank 0, the single-process
+   trainer's ms per step after the group, and one step under the
+   collective recorder (``utils/collectives.py``): every rank's sends and
+   bytes equal ``profiling.halo_traffic``'s ``collective_permute_ops``
+   and ``per_device_bytes`` exactly; (c) ``DataParallelTrainer`` on
    4 workers, no compression, int8 and top-k 5 %, 30 steps each: the loss
    falls, params stay bitwise replicated, the error-feedback slices differ
-   across workers, one K3 and one K4 per step; (d) a supervised 3 x 100
+   across workers, one K3 and one K4 per step, and one step recorded is
+   one packed all-reduce of the gradient and the terms; (d) a supervised 3 x 100
    step run with a crash after chunk 1 equals three uninterrupted chunks
    exactly (params and moments, 0.0), ``nan_params`` on subdomain 0
    trips the guard on every rank by consensus (``ok_sub[0]`` False,
@@ -253,7 +258,36 @@ any of them ends the run with a non-zero exit code and no result line:
    ``adam_update`` scopes; then K5 and K6 at the training shapes beside
    their plain versions, SDPA and the training entry's forward and
    backward;
-14. **dryrun** — the dry run (``repro_torch.launch.dryrun``: the step
+14. **ep** — expert parallelism (``models/expert_parallel.py``,
+   ``moe.moe_ffn_shardmap``) on ``gloo`` ranks sharing the card
+   (``launch/mesh.py::make_grid_mesh``, model innermost), every rank
+   holding its data shard and its E/M routed experts of each MoE layer
+   (drawn from the seed layer by layer, ``CausalLM.init(seed, experts=(m,
+   M))``), each rank's collectives recorded
+   (``utils/collectives.py::CollectiveRecorder``) and held EXACTLY to the
+   prediction (``_ep_predict``, written in ``PERF.md`` before the first
+   run): (a) deepseek-moe-16b at full width and EP_PREFILL's 4 of 28
+   layers (the prelude and 3 MoE layers), B 2 x 1024 on a (data 2, model
+   2) grid: the one-process twin (``EPPlan``) prefills first, alone, in
+   float32, shard by shard (the ranks' product shapes: a B 2 product
+   rounds otherwise than a B 1 one, and a near-tie route flips), and the
+   one-process
+   ``moe_ffn`` prefill in bf16 is timed; then each rank's float32
+   prefill, counted (exactly 4 K5 launches on the float32 kernel, no
+   plain version) and recorded, is held within EP_LOGIT_TOL of max
+   |logit| of the twin's rows, and its bf16 prefill is counted, recorded
+   and then timed (EP_TIME_REPS); (b) 2 of 28 layers, B 2 x 1024,
+   EP_TRAIN's 10 ``lm_train_step``s on a (1, 2) grid (the same group's
+   ranks of data shard 0: one spawn for both parts): the twin's 10
+   steps first, alone; then each rank's, counted (steps x 2 layers x 2
+   K5 launches, steps x 2 recomputes) and recorded, its losses within
+   EP_LOSS_TOL of the twin's step by step and its final params within
+   EP_PARAM_TOL (scaled by max(1, max |want|)); the twin's and each
+   rank's peak within DRYRUN_PEAK_TOL of the dry run of its step (a
+   rank's as ``moe_ffn`` over its E/M experts); then EP_TIME_STEPS more
+   steps unrecorded (the recorder's cost).  ``ep_prefill``,
+   ``ep_train`` and one ``ep_rank`` line a rank;
+15. **dryrun** — the dry run (``repro_torch.launch.dryrun``: the step
    traced on the meta device, nothing launched) against the card: (a)
    each LM_TRAIN run's training step at its config, depth cut and batch
    on a (1, 1) mesh, its predicted peak within DRYRUN_PEAK_TOL of the
@@ -268,10 +302,10 @@ any of them ends the run with a non-zero exit code and no result line:
    own dry run), and the run's cut no deeper;
    (c) full-size llama3.2-1b and deepseek-moe-16b train / prefill / decode
    cells on the (16, 16) mesh, printed; (d) no launch count moves;
-15. **report** — one ``{"kernels": [...]}`` line (K1-K6; K5 and K6 also
+16. **report** — one ``{"kernels": [...]}`` line (K1-K6; K5 and K6 also
    at the training shapes, K5 also at minicpm3's MLA shape, the MoE
-   configs' shapes, the VLM's and zamba2's paths and seamless's four
-   calls), the card's name
+   configs' shapes, the VLM's and zamba2's paths, seamless's four calls
+   and the ep path's launches a rank), the card's name
    and power limit from ``nvidia-smi``, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Each phase prints its seconds.
@@ -1517,6 +1551,16 @@ def runtime_phase(dev) -> dict:
 
 # ---------------------------------------------------------------- distributed
 
+# phase ep: deepseek-moe-16b's routed experts split over gloo ranks
+EP_ARCH = "deepseek-moe-16b"
+EP_PREFILL = {"grid": (2, 2), "layers": 4, "batch": 2, "seq": 1024}
+EP_TRAIN = {"grid": (1, 2), "layers": 2, "batch": 2, "seq": 1024,
+            "steps": 10, "lr": 3e-4}
+EP_TIME_REPS = 3         # bf16 prefills timed after the recorded one
+EP_TIME_STEPS = 3        # training steps timed without the recorder
+EP_LOGIT_TOL = 1e-4      # float32 ranks against the twin, of max |logit|
+EP_LOSS_TOL = 1e-5       # the ranks' losses against the twin's, each step
+EP_PARAM_TOL = 1e-4      # final params, of max(1, max |want|)
 DIST_RANKS = 4
 DIST_STEPS, DIST_CHUNK = 1500, 250
 DIST_TURN_STEPS = 100
@@ -1577,6 +1621,8 @@ def _dist_rank(mesh, ck_dir: str) -> dict:
     from repro_torch.runtime import (Fault, FaultInjector, Supervisor,
                                      SupervisorConfig, inject_nan)
     from repro_torch.core import TrainState
+    from repro_torch.utils.collectives import (CollectiveRecorder,
+                                               collective_bytes)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rank = dist.get_rank()
@@ -1617,6 +1663,13 @@ def _dist_rank(mesh, ck_dir: str) -> dict:
                             device=dev) if rank == 0 else None)
     out["b"] = {"seconds": secs, "launches": cnt, "plain": plain,
                 "rel_l2": l2, "l2_launches": l2_cnt, "l2_plain": l2_plain}
+    # one step under the collective recorder: the halo exchange's sends
+    dist.barrier()
+    with CollectiveRecorder() as rec:
+        tr.step(s_b, b)
+        _sync(dev)
+    out["halo_record"] = {**collective_bytes(rec.record),
+                          "by_group": _ep_recorded(rec.record)[0]}
 
     # exchange on / off in turns (on, off, off, on) from s_b: the
     # compute / communication split per step
@@ -1687,6 +1740,15 @@ def _dist_rank(mesh, ck_dir: str) -> dict:
         row = {"scheme": None if comp is None else comp.scheme,
                "loss_first": losses[0], "loss_last": losses[-1],
                "seconds": secs, "launches": cnt, "plain": plain}
+        # one step recorded: one packed all-reduce of the gradient and
+        # the terms
+        with CollectiveRecorder() as rec:
+            _, terms = dp.step(st, bdp)
+            _sync(dev)
+        row["record"] = collective_bytes(rec.record)
+        row["packed_bytes"] = 4 * (sum(t.numel() for t in
+                                       tree_leaves(st["params"]))
+                                   + len(terms))
         # params stay replicated bitwise: every worker applies one gradient
         p = torch.cat([t.reshape(-1) for t in tree_leaves(st["params"])])
         allp = dp.comm.all_gather(p)
@@ -1837,6 +1899,23 @@ def distributed_phase(dev) -> dict:
                                       for r in ranks],
             "scopes_ms_per_step_rank0": r0["scopes_ms_per_step"],
             "reference_trainer_ms_per_step": ref_ms}
+        # the recorded step's sends against the analytic halo traffic
+        from repro_torch.obs.profiling import halo_traffic
+        traffic = halo_traffic(ref.topo, ref.pde.n_fields + ref.pde.n_eq)
+        sent = [r["halo_record"]["bytes_by_kind"].get("collective-permute",
+                                                      0.0) for r in ranks]
+        sends = [r["halo_record"]["counts"].get("collective-permute", 0)
+                 for r in ranks]
+        check(sent == traffic["per_device_bytes"]
+              and max(sends) == traffic["collective_permute_ops"],
+              f"(b) recorded sends {sends} of {sent} bytes, analytic "
+              f"{traffic['collective_permute_ops']} of "
+              f"{traffic['per_device_bytes']}")
+        res["b"]["halo_recorded"] = {
+            "per_device_bytes": sent, "sends": sends,
+            "analytic": {k: traffic[k] for k in (
+                "per_device_bytes", "collective_permute_ops")},
+            "rank0": r0["halo_record"]}
 
         # (c) data parallel
         for i, row in enumerate(r0["c"]):
@@ -1852,6 +1931,14 @@ def distributed_phase(dev) -> dict:
                   f"{row['loss_last']}")
             check(row["param_spread"] == 0.0,
                   f"(c) {row['scheme']}: params differ across workers")
+            for r in ranks:
+                rec = r["c"][i]["record"]
+                check(rec["counts"] == {"all-reduce": 1} and
+                      rec["bytes_by_kind"]["all-reduce"]
+                      == r["c"][i]["packed_bytes"],
+                      f"(c) {row['scheme']}: rank {r['rank']} recorded "
+                      f"{rec}, want one all-reduce of "
+                      f"{r['c'][i]['packed_bytes']} bytes")
             if row["scheme"] is not None:
                 check(row["err_spread"] > 0.0, f"(c) {row['scheme']}: the "
                       "error feedback is the same on every worker")
@@ -3458,6 +3545,423 @@ def lm_train_phase(dev) -> dict:
 
 # ------------------------------------------------------------------ dry run
 
+# ------------------------------------------------------------------ phase ep
+
+def _ep_cfg(layers, dtype, shard_map=True):
+    """deepseek-moe-16b at full width and ``layers`` of its 28 (the dense
+    prelude first), in ``dtype``, expert-parallel or not."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(EP_ARCH), n_layers=layers,
+                               dtype=dtype, moe_shard_map=shard_map)
+
+
+def _ep_tokens(dev, cell):
+    """The prefill's (B, S) tokens, drawn from the seed on the card (every
+    rank draws the same)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    return torch.randint(0, _ep_cfg(1, "float32").vocab,
+                         (cell["batch"], cell["seq"]), generator=gen,
+                         device=dev)
+
+
+def _ep_predict(cfg, cell, steps=0) -> dict:
+    """The collectives one rank of the ep path issues (the prediction
+    written in ``PERF.md`` §6 before the phase first ran): ``{group:
+    {kind: [count, bytes]}}``.
+
+    A prefill: per MoE layer one all-reduce over the model group of the
+    partial (T_loc, d) output.  ``steps`` training steps, each: per MoE
+    layer that forward all-reduce, twice under remat (the recompute runs
+    it again), and the backward all-reduce of the tokens and gates (T_loc, d +
+    k) over the model group; one float32 scalar over the model group (the
+    expert leaves' squares of the global norm).  Training is predicted on a
+    (1, M) grid only, the one (b) runs.  A group of one rank issues
+    nothing."""
+    D, M = cell["grid"]
+    t_loc = cell["batch"] // D * cell["seq"]
+    n_moe = cfg.n_layers - cfg.first_dense
+    el = 4 if cfg.dtype == "float32" else 2
+    out_b = t_loc * cfg.d_model * el
+    model = {}
+
+    def add(group, count, nbytes):
+        row = group.setdefault("all-reduce", [0, 0])
+        row[0] += count
+        row[1] += nbytes
+
+    if not steps:
+        if M > 1:
+            add(model, n_moe, n_moe * out_b)
+        return {"model": model} if model else {}
+    if D > 1:
+        raise ValueError(f"training is predicted on a (1, M) grid, not "
+                         f"({D}, {M})")
+    fwd = 1 + int(bool(cfg.remat))
+    if M > 1:
+        add(model, steps * fwd * n_moe, steps * fwd * n_moe * out_b)
+        add(model, steps * n_moe, steps * n_moe * t_loc
+            * (cfg.d_model + cfg.top_k) * el)
+        add(model, steps, steps * 4)
+    return {"model": model} if model else {}
+
+
+def _ep_recorded(record) -> dict:
+    """A record as ``{group: {kind: [count, bytes]}}`` (the prediction's
+    form) and the ms of each kind."""
+    from repro_torch.utils import collectives as COL
+
+    groups = COL.by_group(record)
+    return ({g: {k: [v["count"], v["bytes"]] for k, v in kinds.items()}
+             for g, kinds in groups.items()},
+            {g: {k: v["ms"] for k, v in kinds.items()}
+             for g, kinds in groups.items()})
+
+
+def _ep_prefill(ep, dev, logits_path) -> dict:
+    """A rank's part of (a): the float32 prefill counted and recorded, held
+    against the twin's logits; the bf16 prefill recorded, then timed."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import build_model
+    from repro_torch.models import expert_parallel as EP
+    from repro_torch.utils.collectives import CollectiveRecorder
+
+    cell = EP_PREFILL
+    out = {}
+    batch = ep.shard_batch({"tokens": _ep_tokens(dev, cell)})
+    params = None
+    for dtype in ("float32", "bfloat16"):
+        cfg = _ep_cfg(cell["layers"], dtype)
+        model = build_model(cfg, dev)
+        if params is None:
+            params = model.init(SEED, experts=(ep.m, ep.model))
+        staged = ep.comm.staged_bytes
+        with EP.use_ep(ep), CollectiveRecorder() as rec:
+            dist.barrier()
+            _reset_lm_counts()
+            logits = model.prefill(params, batch)
+            _sync(dev)
+            counts = _lm_counts()
+        got, ms = _ep_recorded(rec.record)
+        row = {"counts": {k: v for k, v in counts.items() if v},
+               "collectives": got, "collective_ms": ms,
+               "staged_bytes": ep.comm.staged_bytes - staged,
+               "finite": bool(torch.isfinite(logits).all())}
+        if dtype == "float32":
+            n = cell["batch"] // ep.data
+            want = torch.load(logits_path, mmap=True)[ep.d * n:(ep.d + 1) * n]
+            want = want.to(dev)
+            row["max_abs_err"] = float((logits - want).abs().max())
+            row["max_abs_logit"] = float(want.abs().max())
+            del want
+        else:
+            times = []
+            with EP.use_ep(ep):
+                for _ in range(EP_TIME_REPS):
+                    dist.barrier()
+                    _sync(dev)
+                    t0 = time.perf_counter()
+                    model.prefill(params, batch)
+                    _sync(dev)
+                    times.append((time.perf_counter() - t0) * 1e3)
+            row["ms"] = times
+        del logits
+        out[dtype] = row
+    return out
+
+
+def _ep_batch(cfg, cell, step, dev):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import make_batch as make_lm_batch
+
+    shape = ShapeConfig("ep", cell["seq"], cell["batch"], "train")
+    return make_lm_batch(cfg, shape, "train", seed=SEED * 100003 + step,
+                         device=dev)
+
+
+def _ep_train(model, box, cell, dev, shard, steps, start=0, peaks=None):
+    """``steps`` of ``lm_train_step`` from ``start``, from the params in
+    ``box`` (a one-element list, emptied: a caller's reference to the
+    first params would keep them alive through every later step, one
+    float32 copy above the step's own peak); (params, losses, seconds a
+    step).  ``peaks`` (a list) gets each step's ``max_memory_allocated``,
+    the first with Adam's state."""
+    import torch
+
+    from repro_torch.launch.train import lm_train_step
+    from repro_torch.optim.adam import init_adam
+
+    params = box.pop()
+    opt = init_adam(params)
+    losses, secs = [], []
+    for s in range(start, start + steps):
+        batch = shard(_ep_batch(model.cfg, cell, s, dev))
+        t0 = time.perf_counter()
+        params, opt, loss, _ = lm_train_step(model, params, opt, batch, s,
+                                             cell["lr"], cell["steps"])
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - t0)
+        if peaks is not None:
+            peaks.append(torch.cuda.max_memory_allocated(dev))
+            torch.cuda.reset_peak_memory_stats(dev)
+    return params, losses, secs
+
+
+def _ep_train_part(ep, dev, params_path) -> dict:
+    """A rank's part of (b): 10 steps counted and recorded, the final params
+    held against the twin's; then steps timed without the recorder."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.nets import tree_leaves
+    from repro_torch.models import build_model
+    from repro_torch.models import expert_parallel as EP
+    from repro_torch.utils.collectives import CollectiveRecorder
+
+    cell = EP_TRAIN
+    cfg = _ep_cfg(cell["layers"], "float32")
+    left = torch.cuda.memory_allocated(dev)   # (a)'s leftovers
+    model = build_model(cfg, dev)
+    box = [model.init(SEED, experts=(ep.m, ep.model))]
+    out = {"params": sum(t.numel() for t in tree_leaves(box[0])),
+           "memory_left_by_a": left}
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    staged = ep.comm.staged_bytes
+    peaks = []
+    with EP.use_ep(ep), CollectiveRecorder() as rec:
+        dist.barrier(group=ep.model_group)
+        _reset_lm_counts()
+        params, losses, secs = _ep_train(model, box, cell, dev,
+                                         ep.shard_batch, cell["steps"],
+                                         peaks=peaks)
+        _sync(dev)
+        counts = _lm_counts()
+    out["collectives"], out["collective_ms"] = _ep_recorded(rec.record)
+    out["staged_bytes"] = ep.comm.staged_bytes - staged
+    out["counts"] = {k: v for k, v in counts.items() if v}
+    out["losses"], out["step_s_recorded"] = losses, secs
+    out["max_memory_allocated"] = max(peaks)
+    out["max_memory_allocated_by_step"] = peaks
+    out["memory_allocated_before"] = before
+    # the final params against the twin's (experts: this rank's cut)
+    want = torch.load(params_path, mmap=True)
+    cut = EP.shard_experts(want, ep.m, ep.model)
+    errs = []
+    for got, w in zip(tree_leaves(params), tree_leaves(cut)):
+        w = w.to(dev)
+        errs.append(float((got - w).abs().max())
+                    / max(1.0, float(w.abs().max())))
+    out["param_err"] = max(errs)
+    del want, cut
+    # the same step unrecorded: the recorder's cost
+    with EP.use_ep(ep):
+        dist.barrier(group=ep.model_group)
+        _, _, secs = _ep_train(model, [params], cell, dev, ep.shard_batch,
+                               EP_TIME_STEPS, start=cell["steps"])
+    out["step_s_unrecorded"] = secs
+    return out
+
+
+def _ep_rank(grid, logits_path, params_path) -> dict:
+    """One rank of the EP_PREFILL grid: its part of (a); then the ranks of
+    data shard 0, with their model group and no data group (a (1, M)
+    grid), run (b) while the others wait."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import expert_parallel as EP
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = grid.device
+    ep = grid.expert_parallel()
+    out = {"rank": grid.rank, "d": ep.d, "m": ep.m, "device": str(dev),
+           "a": _ep_prefill(ep, dev, logits_path)}
+    out["a"]["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if ep.d == 0:
+        sub = EP.EPRank(data=1, model=ep.model, d=0, m=ep.m, data_group=None,
+                        model_group=ep.model_group, comm=ep.comm)
+        out["b"] = _ep_train_part(sub, dev, params_path)
+    return out
+
+
+def ep_phase(dev) -> dict:
+    """Expert parallelism on ``gloo`` ranks sharing the card (the
+    docstring's phase 14): the twins first, alone, then one group of
+    EP_PREFILL's ranks for (a) and, on its data shard 0, (b)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.nets import map_tree
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models import expert_parallel as EP
+
+    res = {"card": _smi(), "arch": EP_ARCH}
+    launches = {}
+    D, M = EP_PREFILL["grid"]
+    check(EP_TRAIN["grid"] == (1, M), "(b) runs on (a)'s data shard 0")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ep_")
+    try:
+        # (a) the twin shard by shard (EPPlan(1, M) on each data shard's
+        # rows: the same function as EPPlan(D, M) on the batch, with the
+        # ranks' product shapes; a B 2 product rounds otherwise than a B 1
+        # one, and a near-tie route flips); the one-process moe_ffn
+        # prefill in bf16, timed
+        cell = EP_PREFILL
+        model = build_model(_ep_cfg(cell["layers"], "float32"), dev)
+        params = model.init(SEED)
+        tokens = _ep_tokens(dev, cell)
+        n = cell["batch"] // D
+        with EP.use_ep(EP.EPPlan(1, M)):
+            twin = torch.cat([model.prefill(params,
+                                            {"tokens": tokens[d * n:
+                                                              (d + 1) * n]})
+                              for d in range(D)])
+        logits_path = os.path.join(tmp, "twin_logits.pt")
+        torch.save(twin.cpu(), logits_path)
+        del twin
+        one = build_model(_ep_cfg(cell["layers"], "bfloat16", False), dev)
+        times = []
+        for _ in range(1 + EP_TIME_REPS):
+            _sync(dev)
+            t0 = time.perf_counter()
+            one.prefill(params, {"tokens": tokens})
+            _sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        del params, model, one
+        torch.cuda.empty_cache()
+
+        # (b) the peaks reckoned by the dry run (the twin's step; a rank's
+        # as moe_ffn over its E/M experts), then the twin's steps
+        cell = EP_TRAIN
+        cfg = _ep_cfg(cell["layers"], "float32")
+        mesh11 = make_production_mesh(shape=(1, 1))
+        shape = ShapeConfig("ep", cell["seq"], cell["batch"], "train")
+        rank_dry = dryrun.lower_cell(
+            EP_ARCH, None, cfg_override=dataclasses.replace(
+                cfg, n_experts=cfg.n_experts // M, moe_shard_map=False),
+            mesh=mesh11, shape_override=shape)[1]["peak_bytes"]
+        with EP.use_ep(EP.EPPlan(1, M)):
+            twin_dry = dryrun.lower_cell(EP_ARCH, None, cfg_override=cfg,
+                                         mesh=mesh11,
+                                         shape_override=shape)[1]["peak_bytes"]
+        t_left = torch.cuda.memory_allocated(dev)   # earlier phases' leftovers
+        model = build_model(cfg, dev)
+        box = [model.init(SEED)]
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_peaks = []
+        with EP.use_ep(EP.EPPlan(1, M)):
+            params, t_losses, t_secs = _ep_train(
+                model, box, cell, dev, lambda b: b, cell["steps"],
+                peaks=t_peaks)
+        params_path = os.path.join(tmp, "twin_params.pt")
+        torch.save(map_tree(lambda t: t.cpu(), params), params_path)
+        del params, model
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=tmp) as store:
+            ranks = mesh_lib.run_ranks(
+                mesh_lib.make_grid_mesh(D, M, store, dev.type,
+                                        timeout_s=300),
+                _ep_rank, logits_path, params_path, deadline_s=500)
+        res["group_seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in ranks:   # printed before the checks
+        emit({"ep_rank": r})
+    for r in ranks:
+        check(r["device"].startswith("cuda"), f"rank {r['rank']} on "
+              f"{r['device']}")
+
+    cell = EP_PREFILL
+    a = {"grid": [D, M], "layers": cell["layers"],
+         "batch": [cell["batch"], cell["seq"]],
+         "one_process_moe_ffn_bf16_ms": times[1:]}
+    for r in ranks:
+        f32, bf16 = r["a"]["float32"], r["a"]["bfloat16"]
+        err = f32["max_abs_err"] / f32["max_abs_logit"]
+        check(f32["finite"] and bf16["finite"] and err <= EP_LOGIT_TOL,
+              f"(a) rank {r['rank']}: logits {err:.3e} of max off the "
+              "twin's")
+        for dtype, kern in (("float32", "flash_attention_f32"),
+                            ("bfloat16", "flash_attention_sm90")):
+            want = {"flash_attention": cell["layers"], kern: cell["layers"]}
+            check(r["a"][dtype]["counts"] == want,
+                  f"(a) rank {r['rank']} {dtype}: K5 "
+                  f"{r['a'][dtype]['counts']}, want {want}")
+            pred = _ep_predict(_ep_cfg(cell["layers"], dtype), cell)
+            check(r["a"][dtype]["collectives"] == pred,
+                  f"(a) rank {r['rank']} {dtype}: collectives "
+                  f"{r['a'][dtype]['collectives']}, predicted {pred}")
+            launches["flash_attention"] = \
+                launches.get("flash_attention", 0) + cell["layers"]
+    a["max_logit_err"] = max(r["a"]["float32"]["max_abs_err"]
+                             / r["a"]["float32"]["max_abs_logit"]
+                             for r in ranks)
+    res["a"] = a
+    emit({"ep_prefill": a})
+
+    cell = EP_TRAIN
+    trained = [r for r in ranks if "b" in r]
+    check(len(trained) == M, f"(b) {len(trained)} ranks trained, want {M}")
+    b = {"grid": [1, M], "layers": cell["layers"],
+         "batch": [cell["batch"], cell["seq"]], "steps": cell["steps"],
+         "twin_losses": t_losses, "twin_step_s": t_secs,
+         "twin_max_memory_allocated_by_step": t_peaks,
+         "memory_left_by_earlier_phases": t_left,
+         "twin_dryrun_peak_bytes": twin_dry, "rank_dryrun_peak_bytes": rank_dry}
+    n_k5 = cell["steps"] * cell["layers"] * (1 + int(cfg.remat))
+    for r in trained:
+        rb = r["b"]
+        diff = max(abs(x - y) for x, y in zip(rb["losses"], t_losses))
+        check(diff <= EP_LOSS_TOL, f"(b) rank {r['rank']}: losses "
+              f"{rb['losses']} against the twin's {t_losses}")
+        check(rb["param_err"] <= EP_PARAM_TOL,
+              f"(b) rank {r['rank']}: params {rb['param_err']:.3e} off")
+        want = {"flash_attention": n_k5, "flash_attention_f32": n_k5,
+                "flash_attention_vjp": cell["steps"] * cell["layers"]}
+        check(rb["counts"] == want,
+              f"(b) rank {r['rank']}: K5 {rb['counts']}, want {want}")
+        pred = _ep_predict(cfg, cell, cell["steps"])
+        check(rb["collectives"] == pred,
+              f"(b) rank {r['rank']}: collectives {rb['collectives']}, "
+              f"predicted {pred}")
+        launches["flash_attention"] = launches.get("flash_attention", 0) \
+            + n_k5
+    # the peaks against the dry runs, less what was allocated before
+    gaps = {"twin": (max(t_peaks) - t_left) / twin_dry - 1}
+    for r in trained:
+        gaps[f"rank{r['rank']}"] = ((r["b"]["max_memory_allocated"]
+                                     - r["b"]["memory_left_by_a"])
+                                    / rank_dry - 1)
+    b["peak_gap_vs_dryrun"] = gaps
+    check(all(abs(g) <= DRYRUN_PEAK_TOL for g in gaps.values()),
+          f"(b) peaks off their dry runs by {gaps}")
+    b["max_loss_diff"] = max(abs(x - y) for r in trained
+                             for x, y in zip(r["b"]["losses"], t_losses))
+    b["max_param_err"] = max(r["b"]["param_err"] for r in trained)
+    res["b"] = b
+    emit({"ep_train": b})
+    res["ranks"] = ranks
+    res["launches"] = launches
+    print(res["card"])
+    return res
+
+
 def _all_launches() -> dict:
     """Every kernel wrapper's launch and plain-call counts (K1-K6)."""
     from repro_torch.kernels import flash_attention as FA
@@ -3522,7 +4026,7 @@ def _deepest_fit(name, cut, peak_at_cut, total) -> dict:
 
 def dryrun_phase(dev, lm_train) -> dict:
     """The dry run (``launch.dryrun``) against the card (the docstring's
-    phase 14): (a) each LM_TRAIN run's step predicted against what the lm
+    phase 15): (a) each LM_TRAIN run's step predicted against what the lm
     train phase measured (peak, K5/K6 launches a step, FLOPs over the
     step's time); (b) the deepest cut that fits the card for the configs
     cut by memory; (c) full-size cells on the (16, 16) mesh; (d) no launch
@@ -3622,7 +4126,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write every phase's numbers to this JSON")
     ap.add_argument("--only", default=None,
-                    choices=("distributed", "scenarios", "lm", "lm_train"),
+                    choices=("distributed", "scenarios", "lm", "lm_train",
+                             "ep"),
                     help="only the build and this phase (no result line)")
     ap.add_argument("--ab", default=None, metavar="DIR",
                     help="only time this checkout's K3/K4 against the "
@@ -3671,6 +4176,11 @@ def main(argv=None) -> int:
         phase("dryrun", dryrun_phase, dev, lm_train)
         print(_smi())
         return 0
+    if args.only == "ep":
+        phase("build", build_phase)
+        phase("ep", ep_phase, dev)
+        print(_smi())
+        return 0
     if args.only:
         phase("build", build_phase)
         phase(args.only, {"distributed": distributed_phase,
@@ -3708,6 +4218,9 @@ def main(argv=None) -> int:
     launches["flash_attention"] += 2 * sum(served.values())   # two runs each
     lm_train = phase("lm train", lm_train_phase, dev)
     for k, v in lm_train["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    ep = phase("ep", ep_phase, dev)
+    for k, v in ep["launches"].items():
         launches[k] = launches.get(k, 0) + v
     phase("dryrun", dryrun_phase, dev, lm_train)
 
@@ -3776,6 +4289,19 @@ def main(argv=None) -> int:
                     if S == 1 else
                     {"launches_per_prefill":
                      enc["prefill_shapes"][(causal, S, T)]})
+            # expert parallelism: deepseek-moe-16b on gloo ranks (phase
+            # 14), each rank's launches
+            kernels[-1]["ep_path"] = {
+                "arch": EP_ARCH,
+                "prefill_launches_per_rank": {
+                    dt: [r["a"][dt]["counts"][name] for r in ep["ranks"]]
+                    for dt in ("float32", "bfloat16")},
+                "prefill_grid": list(EP_PREFILL["grid"]),
+                "lm_train_launches_per_rank":
+                    [r["b"]["counts"][name] for r in ep["ranks"]
+                     if "b" in r],
+                "lm_train_grid": list(EP_TRAIN["grid"]),
+                "lm_train_steps": EP_TRAIN["steps"]}
             et = lm_train[ENCDEC]
             kernels[-1]["encdec_path"] = {
                 "arch": ENCDEC,

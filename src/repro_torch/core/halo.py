@@ -120,12 +120,13 @@ class Comm:
                     req.wait()
         return self.up(recv)[None]
 
-    def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM
-                   ) -> torch.Tensor:
-        """The reduction of ``t`` over the ranks (a new tensor on ``t``'s
-        device)."""
-        h = self.down(t, "reduce") if self.stage else t.detach().clone()
-        dist.all_reduce(h, op=op)
+    def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM,
+                   group=None) -> torch.Tensor:
+        """The reduction of ``t`` over the ranks of ``group`` (default: all
+        of them); a new tensor on ``t``'s device."""
+        h = self.down(t, "reduce") if self.stage else \
+            t.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(h, op=op, group=group)
         return self.up(h)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:

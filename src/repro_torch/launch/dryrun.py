@@ -101,8 +101,10 @@ NOTES = {
                   "estimate",
     "per_device": "flops_per_device and bytes_per_device are the even split "
                   "of flops and bytes over n_devices",
-    "collectives": "no collective term: torch emits no partitioned program "
-                   "to read collectives from (ROADMAP Queue 1)",
+    "collectives": "no collective term: the step is traced on one device, "
+                   "not partitioned; the partitioned dry run (ROADMAP "
+                   "Queue 1 item 2) would count its collectives with "
+                   "utils.collectives",
 }
 
 

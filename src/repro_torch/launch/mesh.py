@@ -29,6 +29,14 @@ its own process, started on this host by :func:`run_ranks`:
 ``gloo`` moves host tensors only; payloads on the card are staged through
 pinned host buffers by :class:`repro_torch.core.halo.Comm`.  NCCL, with one
 card per rank, is not used here: it refuses two ranks on one card.
+
+:func:`make_grid_mesh` is a ``data x model`` grid of such ranks (expert
+parallelism, ``models/expert_parallel.py``), laid out as the reference's
+``("data", "model")`` mesh: model innermost, so rank = d * M + m.  Every
+rank of a grid gets its data group (the D ranks of its model index) and
+its model group (the M ranks of its data index) from ``dist.new_group``,
+described ``"data"`` and ``"model"``; :func:`run_ranks` hands the rank's
+body its :class:`GridRank` in the mesh's place.
 """
 from __future__ import annotations
 
@@ -141,6 +149,88 @@ def make_pinn_mesh(n_sub: int, store_dir: str, device=None,
                     device=dev.type, timeout_s=float(timeout_s))
 
 
+@dataclass(frozen=True)
+class GridMesh:
+    """``data x model`` ranks on one host (model innermost), with the store
+    directory, device type and collective timeout of :class:`PinnMesh`."""
+
+    data: int
+    model: int
+    store_dir: str
+    device: str = "cuda"
+    timeout_s: float = TIMEOUT_S
+
+    @property
+    def n_sub(self) -> int:
+        return self.data * self.model
+
+    @property
+    def backend(self) -> str:
+        return BACKEND
+
+    def rank_device(self, rank: int) -> torch.device:
+        return PinnMesh.rank_device(self, rank)
+
+    def coords(self, rank: int) -> tuple[int, int]:
+        """(d, m) of a rank."""
+        return divmod(rank, self.model)
+
+
+@dataclass(frozen=True)
+class GridRank:
+    """One rank's place in a :class:`GridMesh` and its two groups: what a
+    rank's body gets from :func:`run_ranks` in the mesh's place."""
+
+    mesh: GridMesh
+    rank: int
+    data_group: object
+    model_group: object
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.rank_device(self.rank)
+
+    def expert_parallel(self):
+        """This rank's ``models.expert_parallel.EPRank``: its coordinates,
+        its two groups and a ``core.halo.Comm`` on its device."""
+        from repro_torch.core.halo import Comm
+        from repro_torch.models.expert_parallel import EPRank
+
+        d, m = self.mesh.coords(self.rank)
+        return EPRank(data=self.mesh.data, model=self.mesh.model, d=d, m=m,
+                      data_group=self.data_group,
+                      model_group=self.model_group, comm=Comm(self.device))
+
+
+def make_grid_mesh(data: int, model: int, store_dir: str, device=None,
+                   timeout_s: float = TIMEOUT_S) -> GridMesh:
+    """The plan of a ``data x model`` grid of ranks; ``device`` as in
+    :func:`make_pinn_mesh`."""
+    dev = resolve_device(device)
+    if data < 1 or model < 1:
+        raise ValueError(f"a grid needs data, model >= 1, got {data} x "
+                         f"{model}")
+    os.makedirs(store_dir, exist_ok=True)
+    return GridMesh(data=int(data), model=int(model),
+                    store_dir=os.path.abspath(store_dir), device=dev.type,
+                    timeout_s=float(timeout_s))
+
+
+def _init_grid(mesh: GridMesh, rank: int) -> GridRank:
+    """Every data and model group of the grid (each rank makes all of
+    them, in one order, as ``new_group`` asks), and this rank's two."""
+    import torch.distributed as dist
+
+    D, M = mesh.data, mesh.model
+    d, m = mesh.coords(rank)
+    data_groups = [dist.new_group([dd * M + mm for dd in range(D)],
+                                  group_desc="data") for mm in range(M)]
+    model_groups = [dist.new_group([dd * M + mm for mm in range(M)],
+                                   group_desc="model") for dd in range(D)]
+    return GridRank(mesh=mesh, rank=rank, data_group=data_groups[m],
+                    model_group=model_groups[d])
+
+
 def _rank_main(rank: int, mesh: PinnMesh, store: str, out_dir: str, fn,
                args) -> None:
     import torch.distributed as dist
@@ -155,7 +245,8 @@ def _rank_main(rank: int, mesh: PinnMesh, store: str, out_dir: str, fn,
     try:
         if mesh.device == "cuda":
             torch.cuda.set_device(mesh.rank_device(rank))
-        result = fn(mesh, *args)
+        first = _init_grid(mesh, rank) if isinstance(mesh, GridMesh) else mesh
+        result = fn(first, *args)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
         dist.barrier()
     except BaseException:
@@ -168,11 +259,13 @@ def _rank_main(rank: int, mesh: PinnMesh, store: str, out_dir: str, fn,
         dist.destroy_process_group()
 
 
-def run_ranks(mesh: PinnMesh, fn, *args, deadline_s: float | None = None
+def run_ranks(mesh: PinnMesh | GridMesh, fn, *args, deadline_s: float | None = None
               ) -> list:
     """Run ``fn(mesh, *args)`` on every rank of ``mesh``, each in its own
     process inside the initialised group; returns the ranks' return values
     in rank order (they cross by ``torch.save``: keep them on the CPU).
+    On a :class:`GridMesh`, ``fn`` gets the rank's :class:`GridRank` in
+    the mesh's place.
 
     ``fn`` must be importable by name (a module-level function).  When a
     rank fails, the others are stopped and ``RuntimeError`` carries every

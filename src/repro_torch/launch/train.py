@@ -77,6 +77,7 @@ from repro_torch.core.trainer import _fit_count
 from repro_torch.data import make_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
+from repro_torch.models import expert_parallel as EP
 from repro_torch.models import make_batch as make_lm_batch
 from repro_torch.optim import adam as adam_lib
 
@@ -246,7 +247,13 @@ def lm_train_step(model, params, opt, batch, step: int, peak_lr: float,
                   total: int):
     """One step of the reference's recipe: loss and gradient, the global
     norm clipped to 1.0, ``warmup_cosine(step, peak_lr, warmup=20,
-    total)``, Adam.  Returns (params, opt, loss, grad norm)."""
+    total)``, Adam.  Returns (params, opt, loss, grad norm).
+
+    On a rank of an expert-parallel grid (``models/expert_parallel.py``,
+    ``params`` holding its experts, ``batch`` its data shard) the loss and
+    the gradients are averaged over the data group, the norm adds the
+    expert leaves over the model group, and Adam updates the rank's
+    shard.  With no such context the one-device step, unchanged."""
     leaves = tree_leaves(params)
     for t in leaves:
         t.requires_grad_(True)
@@ -256,8 +263,10 @@ def lm_train_step(model, params, opt, batch, step: int, peak_lr: float,
     finally:
         for t in leaves:
             t.requires_grad_(False)
-    grads, gn = adam_lib.clip_by_global_norm(
-        tree_unflatten(params, list(grads)), 1.0)
+    loss, grads = EP.mean_over_data(loss, list(grads))
+    grads = tree_unflatten(params, grads)
+    grads, gn = adam_lib.clip_by_global_norm(grads, 1.0,
+                                             norm=EP.global_norm(grads))
     lr = adam_lib.warmup_cosine(torch.tensor(step, device=loss.device),
                                 peak_lr, warmup=20, total=total)
     with torch.profiler.record_function("adam_update"):

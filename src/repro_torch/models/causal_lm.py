@@ -46,6 +46,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import expert_parallel as EP
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import add_layer_axis, specs_from_logical
 
@@ -104,16 +105,24 @@ class CausalLM:
             0 if gen is None else int(gen))
 
     # ------------------------------------------------------------------ params
-    def init(self, gen=None) -> dict:
+    def init(self, gen=None, *, experts=None) -> dict:
         """Params drawn from ``gen`` (a ``torch.Generator`` on the model's
         device, or an int seed for one): the reference's tree, keys and
-        shapes, with float32 leaves."""
+        shapes, with float32 leaves.  ``experts=(m, M)`` keeps model rank
+        m's E/M experts of each MoE layer as the layer is drawn (the same
+        draws: ``shard_experts`` of the full tree, without ever holding
+        more than one layer's experts)."""
         cfg = self.cfg
         g = self._generator(gen)
+
+        def layer_init(gg):
+            lp = self.block.init(gg, cfg)
+            return lp if experts is None else \
+                EP.shard_experts(lp, *experts, axis=0)
+
         p = {
             "embed": L.init_embedding(g, cfg.padded_vocab, cfg.d_model),
-            "layers": L.stack_init(lambda gg: self.block.init(gg, cfg), g,
-                                   self._n_main),
+            "layers": L.stack_init(layer_init, g, self._n_main),
             "final_norm": L.ones(g, (cfg.d_model,)),
         }
         if self.prelude:
@@ -214,8 +223,12 @@ class CausalLM:
         else:
             positions = torch.full((B, 1), pos, dtype=torch.int64,
                                    device=x.device)
+        # the expert-parallel context is captured here: a remat recompute
+        # runs the layers again in the autograd engine's thread (a card's),
+        # where the caller's thread-local context is not set
         ctx = dict(positions=positions, pos=pos, q_offset=0,
-                   mode="decode" if pos is not None else "full", plain=plain)
+                   mode="decode" if pos is not None else "full", plain=plain,
+                   ep=EP.current_ep())
 
         main_cache, pre_cache = cache, None
         if self.prelude and cache is not None:
@@ -279,8 +292,15 @@ class CausalLM:
         loss = L.fused_head_cross_entropy(
             x, w, batch["labels"], batch.get("loss_mask"), transpose_w=tied,
             n_valid=cfg.vocab if cfg.padded_vocab != cfg.vocab else None)
+        loss = EP.global_token_mean(loss, batch.get("loss_mask"))
         if isinstance(ys, dict) and "aux" in ys:  # MoE load-balance loss
             loss = loss + 0.01 * torch.mean(ys["aux"])
+        elif isinstance(ys, dict) and "aux_parts" in ys:
+            # expert parallelism: each layer's (me, ce) summed over the data
+            # shards, then E * sum(me * ce)
+            parts = EP.reduce_data(ys["aux_parts"])
+            aux = cfg.n_experts * torch.sum(parts[:, 0] * parts[:, 1], dim=-1)
+            loss = loss + 0.01 * torch.mean(aux)
         return loss
 
     @torch.no_grad()

@@ -68,9 +68,12 @@ def adam_update(grads: Pytree, state: dict, params: Pytree, lr,
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Pytree, max_norm: float):
-    gn = torch.sqrt(sum(torch.sum(g.float() ** 2)
-                        for g in tree_leaves(grads)))
+def clip_by_global_norm(grads: Pytree, max_norm: float, norm=None):
+    """Scale ``grads`` to a global norm of at most ``max_norm``; ``norm``
+    is the norm when the caller has it (a sharded tree's, summed over its
+    ranks), else it is computed from the leaves."""
+    gn = norm if norm is not None else torch.sqrt(
+        sum(torch.sum(g.float() ** 2) for g in tree_leaves(grads)))
     scale = torch.clamp(max_norm / (gn + 1e-12), max=1.0)
     return map_tree(lambda g: g * scale.to(g.dtype), grads), gn
 

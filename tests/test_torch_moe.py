@@ -1,7 +1,8 @@
 """PyTorch port of the MoE block against the JAX package: ``init``'s tree,
 ``moe_ffn`` (grouping, capacity, drops, the stable sort, gates, the
-load-balance term) and its gradients, the top-k tie-break, and the
-``moe_shard_map`` refusal, on the same numpy inputs and the reference's
+load-balance term) and its gradients, the top-k tie-break, and
+``moe_shard_map``'s refusal without an expert-parallel context, on the
+same numpy inputs and the reference's
 weights carried across (``params_from_numpy``).
 
 Tolerances (float32): the output within 1e-5 of max |out|, the aux term
@@ -196,10 +197,13 @@ def test_top_k_ties_take_the_lower_expert(ratio, dtype):
 
 
 def test_moe_shard_map_raises():
+    """``moe_shard_map=True`` with no expert-parallel context raises a
+    ValueError naming the missing context; it never falls back to
+    ``moe_ffn`` (tests/test_torch_moe_ep.py runs it in one)."""
     cfg = dataclasses.replace(ARCHS["deepseek-moe-16b"].reduced(),
                               moe_shard_map=True)
     model = build_model(cfg, "cpu")
     params = model.init(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="expert-parallel context"):
         model.prefill(params, {"tokens": torch.zeros((1, 8),
                                                      dtype=torch.long)})

@@ -1,15 +1,16 @@
 """The port's profiling hooks (``repro_torch.obs.profiling``) against the
 JAX package's (``repro.obs.profiling``), on the CPU: the scope vocabulary,
 the comp/comm splitter on fake clocks, the analytic halo traffic against
-the bytes four ``gloo`` ranks actually send, the scopes a step records,
+the bytes four ``gloo`` ranks actually send (cPINN and XPINN, counted by
+``utils.collectives``' recorder), the scopes a step records,
 and the build/load watcher."""
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (Burgers1D, CartesianDecomposition, DDConfig,
-                              DistributedDDTrainer, ReferenceTrainer, XPINN,
-                              build_topology)
+from repro_torch.core import (CPINN, Burgers1D, CartesianDecomposition,
+                              DDConfig, DistributedDDTrainer,
+                              ReferenceTrainer, XPINN, build_topology)
 from repro_torch.core.nets import MLPConfig, SubdomainModelConfig
 from repro_torch.data import make_batch
 from repro_torch.kernels import native, ops
@@ -87,42 +88,34 @@ def test_comp_comm_split_matches_reference_on_fake_clocks(iters, warmup,
     assert 0.0 < out["port"]["comm_frac"] < 1.0
 
 
-def _traffic_rank(mesh):
-    """One outer step of ``DistributedDDTrainer`` with every isend's bytes
-    counted, then the scopes of a second step."""
-    import torch.distributed as dist
-    from repro_torch.core import halo
+def _traffic_rank(mesh, method=XPINN):
+    """One outer step of ``DistributedDDTrainer`` under the collective
+    recorder (``utils.collectives``: every send this rank issues, as a
+    collective-permute), then the scopes of a second step."""
+    from repro_torch.utils.collectives import (CollectiveRecorder,
+                                               collective_bytes)
 
     pde, topo, cfg, batch = _quickstart()
     tr = DistributedDDTrainer(pde, cfg, topo,
-                              DDConfig(method=XPINN, residual_path="fused"),
+                              DDConfig(method=method, residual_path="fused"),
                               lrs=2e-3, device="cpu")
     b = tr.shard_batch(batch.device_arrays("cpu"))
     st = tr.init(0)
-    sent, orig = [], halo.dist.batch_isend_irecv
-
-    def counting(p2p_ops):
-        sent.extend(op.tensor.numel() * op.tensor.element_size()
-                    for op in p2p_ops if op.op is dist.isend)
-        return orig(p2p_ops)
-
-    halo.dist.batch_isend_irecv = counting
-    try:
+    with CollectiveRecorder() as rec:
         st, _ = tr.step(st, b)
-    finally:
-        halo.dist.batch_isend_irecv = orig
+    sent = collective_bytes(rec.record)
     scopes = profiling.scope_counts(lambda: tr.step(st, b))
-    return {"bytes": sum(sent), "sends": len(sent), "scopes": scopes}
+    return {"bytes": sent["bytes_by_kind"].get("collective-permute", 0.0),
+            "sends": sent["counts"].get("collective-permute", 0),
+            "scopes": scopes,
+            "send_scopes": sorted({c.scope for c in rec.record
+                                   if c.kind == "collective-permute"})}
 
 
-def test_halo_traffic_equals_the_bytes_four_ranks_send(tmp_path):
-    """The analytic per-device traffic of the 2 x 2 quickstart topology
-    against one ``exchange_p2p`` step of 4 ``gloo`` ranks on the CPU: each
-    rank sends 2 slots x 20 points x (u, F) float32 = 320 bytes (the card
-    stages them down and up: 640 bytes a rank and step)."""
+def _check_traffic(tmp_path, method):
     pde, topo, _, _ = _quickstart()
     mesh = mesh_lib.make_pinn_mesh(4, str(tmp_path), "cpu", timeout_s=120)
-    ranks = mesh_lib.run_ranks(mesh, _traffic_rank, deadline_s=240)
+    ranks = mesh_lib.run_ranks(mesh, _traffic_rank, method, deadline_s=240)
     got = halo_traffic(topo, pde.n_fields + pde.n_eq)
     assert got["per_device_bytes"] == [r["bytes"] for r in ranks]
     assert got["collective_permute_bytes"] == 320.0
@@ -133,6 +126,23 @@ def test_halo_traffic_equals_the_bytes_four_ranks_send(tmp_path):
         assert r["scopes"]["dd-comm-halo"] >= 1
         assert r["scopes"]["dd-comp-forward"] == 1
         assert r["scopes"]["dd-comp-update"] == 1
+        assert all(s.endswith("dd-comm-halo") for s in r["send_scopes"])
+    return ranks
+
+
+def test_halo_traffic_equals_the_bytes_four_ranks_send(tmp_path):
+    """The analytic per-device traffic of the 2 x 2 quickstart topology
+    against one ``exchange_p2p`` step of 4 ``gloo`` ranks on the CPU, the
+    sends counted by the collective recorder: each XPINN rank sends 2
+    slots x 20 points x (u, the residual F) float32 = 320 bytes (the card
+    stages them down and up: 640 bytes a rank and step)."""
+    _check_traffic(tmp_path, XPINN)
+
+
+def test_halo_traffic_equals_the_bytes_four_cpinn_ranks_send(tmp_path):
+    """The same for cPINN, whose payload is u and the normal flux: as many
+    channels as XPINN's u and residual, so the same 320 bytes a rank."""
+    _check_traffic(tmp_path, CPINN)
 
 
 def test_halo_traffic_records_a_single_process_step_s_scopes():
