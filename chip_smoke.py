@@ -7,7 +7,7 @@
     python3 chip_smoke.py --only scenarios     # build + phase 8 only
     python3 chip_smoke.py --only lm            # build + phases 9-12 only
     python3 chip_smoke.py --only lm_train      # build + phases 13, 15 only
-    python3 chip_smoke.py --only ep            # build + phase 14 only
+    python3 chip_smoke.py --only ep            # build + phase 14, 15 (e)
 
 Run from the root of a checkout.  With ``--ab DIR`` only the build and an
 A/B runs: this checkout's K3 and K4 and the ones built from
@@ -23,7 +23,9 @@ any of them ends the run with a non-zero exit code and no result line:
    spill), and per kernel the count of
    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in the built
    library's SASS (``cuobjdump -sass``): the bf16 K5 kernel must hold
-   ``HGMMA``, and ``UTMALDG`` in its TMA instantiations;
+   ``HGMMA``, and ``UTMALDG`` in its TMA instantiations.  Meanwhile a
+   thread runs phase 15's dry runs (CPU only, nothing launched; they
+   predict runs made later and are held to them there);
 2. **kernels** — hold each forward kernel (K1/K2) against its plain PyTorch
    version on the card (float32, rtol = atol = 1e-5) over activations
    tanh/sin/cos, d_in 1-3, widths 20/24/40/80/128 at depths 2-5, d2
@@ -255,7 +257,9 @@ any of them ends the run with a non-zero exit code and no result line:
    device busy ms, idle share, the K5 / K6 kernels' ms and launch counts
    (the traced remat factor), and the device ms inside the
    ``flash_attention_vjp`` / ``wkv6_vjp``, ``fused_head_ce`` and
-   ``adam_update`` scopes; then K5 and K6 at the training shapes beside
+   ``adam_update`` scopes (read from the profiler's events,
+   ``_split``; deepseek's trace also through torch's event tree, the
+   two equal); then K5 and K6 at the training shapes beside
    their plain versions, SDPA and the training entry's forward and
    backward;
 14. **ep** — expert parallelism (``models/expert_parallel.py``,
@@ -288,7 +292,8 @@ any of them ends the run with a non-zero exit code and no result line:
    steps unrecorded (the recorder's cost).  ``ep_prefill``,
    ``ep_train`` and one ``ep_rank`` line a rank;
 15. **dryrun** — the dry run (``repro_torch.launch.dryrun``: the step
-   traced on the meta device, nothing launched) against the card: (a)
+   traced on the meta device, nothing launched; computed during the
+   build) against the card: (a)
    each LM_TRAIN run's training step at its config, depth cut and batch
    on a (1, 1) mesh, its predicted peak within DRYRUN_PEAK_TOL of the
    run's ``torch.cuda.max_memory_allocated`` less what was allocated
@@ -302,6 +307,16 @@ any of them ends the run with a non-zero exit code and no result line:
    own dry run), and the run's cut no deeper;
    (c) full-size llama3.2-1b and deepseek-moe-16b train / prefill / decode
    cells on the (16, 16) mesh, printed; (d) no launch count moves;
+   (e) the partitioned dry run (``lower_cell(partitioned=True)``: the step
+   as rank 0 of a fake process group over DTensors) of the ep phase's own
+   cells, with the rules replicating every param but the experts as the
+   ranks hold them: the (2, 2) prefill in float32 and bf16 and one step of
+   the (1, 2) training cell (ten of them for the ranks' ten steps), each
+   held against every rank's recorded collectives (group, kind, count,
+   bytes) and ``_ep_predict`` exactly, its K5 calls a device against each
+   rank's launches, and its ``peak_bytes_per_device`` against the training
+   ranks' measured peak within DRYRUN_PEAK_TOL; the part prints its
+   seconds;
 16. **report** — one ``{"kernels": [...]}`` line (K1-K6; K5 and K6 also
    at the training shapes, K5 also at minicpm3's MLA shape, the MoE
    configs' shapes, the VLM's and zamba2's paths, seamless's four calls
@@ -345,6 +360,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2679,16 +2695,18 @@ def lm_timing(dev) -> dict:
     return out
 
 
-def _device_split(fn, kernels=None, scopes=()) -> dict:
+def _device_split(fn, kernels=None, scopes=(), reference=False) -> dict:
     """One call of ``fn`` under torch.profiler: the device time of every
     kernel and copy it ran (events on the CUDA device only, each counted
     once), the part of it in each device kernel of ``kernels`` (name ->
     symbol; DEVICE_KERNELS, the K5/K6 kernels, by default) and how many
     times each ran, the device time of the kernels launched inside each
     ``record_function`` scope named in ``scopes``, the largest items, and
-    the host-clock ms of the profiled call."""
+    the host-clock ms of the profiled call.  Read by :func:`_split` from
+    the profiler's own events; with ``reference`` also by
+    :func:`_split_reference` (torch's event tree, ~17 s a step of ~21k
+    device events), and the two must agree."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     kernels = DEVICE_KERNELS if kernels is None else kernels
@@ -2702,41 +2720,164 @@ def _device_split(fn, kernels=None, scopes=()) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    keys, scope_ms = _split(prof, scopes)
+    parse_s = time.perf_counter() - t0
+    if reference:
+        t0 = time.perf_counter()
+        ref_keys, ref_scope_ms = _split_reference(prof, scopes)
+        ref_s = time.perf_counter() - t0
+        check(keys.keys() == ref_keys.keys() and all(
+            keys[k][1] == ref_keys[k][1] and
+            abs(keys[k][0] - ref_keys[k][0]) <= 1e-6 * ref_keys[k][0]
+            for k in keys), "the profiler's events and torch's tree give "
+              "other device times")
+        check(all(abs(scope_ms[k] - ref_scope_ms[k])
+                  <= 1e-6 * max(ref_scope_ms[k], 1e-3) for k in scopes),
+              f"scopes {scope_ms} against torch's tree {ref_scope_ms}")
     busy, pad = 0.0, 0
     kern = dict.fromkeys(kernels, 0.0)
     count = dict.fromkeys(kernels, 0)
     top = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
+    for key, (us, n) in keys.items():
+        if re.search(rf"\b{PAD_KERNEL}\b", key):
+            pad += n
             continue
-        if re.search(rf"\b{PAD_KERNEL}\b", ev.key):
-            pad += ev.count
+        ms = us / 1e3
+        busy += ms
+        for name, sym in kernels.items():
+            if re.search(rf"\b{sym}\b", key):
+                kern[name] += ms
+                count[name] += n
+        top.append((ms, n, key[:70]))
+    top.sort(reverse=True)
+    out = {"device_busy_ms": busy, "k5_k6_ms": sum(kern.values()),
+           "kernel_ms": kern, "kernel_count": count, "scope_ms": scope_ms,
+           "device_events": sum(n for _, n, _ in top),
+           "top": [[round(t, 3), n, k] for t, n, k in top[:8]],
+           "profiled_wall_ms": wall,
+           "pad_records_lost": PROFILE_PAD - pad, "parse_s": parse_s}
+    if reference:
+        out["reference_parse_s"] = ref_s
+    return out
+
+
+def _split(prof, scopes):
+    """``({name: [device us, count]}, {scope: device ms})`` of a profile:
+    the device events (kernels, copies) by name, a scope's or a user
+    annotation's own device span left out, and each scope's device time,
+    the kernels launched by the ops inside it.  The sums of torch's
+    ``key_averages()`` and ``FunctionEvent.device_time_total`` (see
+    :func:`_split_reference`), taken from the profiler's kineto events
+    without building torch's event objects: the same event filter, the
+    same nesting of a thread's synchronous CPU events by their intervals
+    (sorted by start, the longer first), a device event charged to the op
+    whose correlation id it links, and an op with one child of its own
+    name merged into it."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    left_out = set(SCOPES + LM_SCOPES)
+    keys: dict = {}
+    launched: dict = {}   # an op's correlation id -> device us it launched
+    cpu = []              # [thread, start, end, name, corr id, link]
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if _filter_name(name) or getattr(e, "is_hidden_event",
+                                         lambda: False)():
+            continue
+        link = e.linked_correlation_id()
+        if e.device_type() == DeviceType.CUDA:
+            us = (e.end_ns() - e.start_ns()) / 1e3
+            if link > 0:
+                launched[link] = launched.get(link, 0.0) + us
+            key = _rewrite_name(name=name, with_wildcard=True)
+            if getattr(e, "is_user_annotation", lambda: False)() or \
+                    key in left_out:
+                continue
+            row = keys.setdefault(key, [0.0, 0])
+            row[0] += us
+            row[1] += 1
+        elif e.device_type() == DeviceType.CPU and not e.is_async() and \
+                e.start_thread_id() == e.end_thread_id():
+            cpu.append([e.start_thread_id(), e.start_ns(), e.end_ns(),
+                        _rewrite_name(name=name, with_wildcard=True),
+                        e.correlation_id(), link])
+    keys = {k: v for k, v in keys.items() if v[0] > 0}
+    # a linked CPU event (a runtime call) sits on its op's thread
+    op_thread = {c[4]: c[0] for c in cpu if c[5] == 0}
+    for c in cpu:
+        if c[5] > 0 and c[5] in op_thread:
+            c[0] = op_thread[c[5]]
+    own = [launched.get(c[4], 0.0) if c[5] == 0 else 0.0 for c in cpu]
+    order = sorted(range(len(cpu)),
+                   key=lambda i: (cpu[i][0], cpu[i][1], -cpu[i][2]))
+    parent = [-1] * len(cpu)
+    children: dict = {}
+    stack, thread = [], None
+    for i in order:
+        if cpu[i][0] != thread:
+            stack, thread = [], cpu[i][0]
+        while stack:
+            top = cpu[stack[-1]]
+            if cpu[i][1] >= top[2] or cpu[i][2] > top[2]:
+                stack.pop()
+            else:
+                parent[i] = stack[-1]
+                children.setdefault(stack[-1], []).append(i)
+                break
+        stack.append(i)
+    # torch's _remove_dup_nodes: a parent with one child of its own name
+    # takes the child's children and the child's kernels; the child goes
+    gone = set()
+    merged = True
+    while merged:
+        merged = False
+        for i in order:
+            p = parent[i]
+            if i in gone or p < 0 or cpu[p][3] != cpu[i][3] or \
+                    len(children.get(p, ())) != 1:
+                continue
+            children[p] = children.pop(i, [])
+            own[p] = own[i]
+            for c in children[p]:
+                parent[c] = p
+            gone.add(i)
+            merged = True
+    total = list(own)
+    for i in reversed(order):
+        if i not in gone and parent[i] >= 0:
+            total[parent[i]] += total[i]
+    scope_ms = dict.fromkeys(scopes, 0.0)
+    for i, c in enumerate(cpu):
+        if c[3] in scope_ms and i not in gone:
+            scope_ms[c[3]] += total[i] / 1e3
+    return keys, scope_ms
+
+
+def _split_reference(prof, scopes):
+    """:func:`_split`'s figures from torch's own event tree
+    (``key_averages()``, ``events()``): the reference it is held to."""
+    from torch.autograd import DeviceType
+
+    keys = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or \
+                ev.self_device_time_total <= 0:
             continue
         # a record_function scope is also a device-side annotation whose
         # span covers the kernels inside it: it is not work of its own
         if getattr(ev, "is_user_annotation", False) or \
                 ev.key in SCOPES + LM_SCOPES:
             continue
-        ms = ev.self_device_time_total / 1e3
-        busy += ms
-        for name, sym in kernels.items():
-            if re.search(rf"\b{sym}\b", ev.key):
-                kern[name] += ms
-                count[name] += ev.count
-        top.append((ms, ev.count, ev.key[:70]))
-    top.sort(reverse=True)
+        keys[ev.key] = [ev.self_device_time_total, ev.count]
     # a host-side scope's device time: the kernels its ops (and their
     # children) launched
     scope_ms = dict.fromkeys(scopes, 0.0)
     for ev in prof.events():
         if ev.name in scope_ms and ev.device_type == DeviceType.CPU:
             scope_ms[ev.name] += ev.device_time_total / 1e3
-    return {"device_busy_ms": busy, "k5_k6_ms": sum(kern.values()),
-            "kernel_ms": kern, "kernel_count": count, "scope_ms": scope_ms,
-            "device_events": sum(n for _, n, _ in top),
-            "top": [[round(t, 3), n, k] for t, n, k in top[:8]],
-            "profiled_wall_ms": wall,
-            "pad_records_lost": PROFILE_PAD - pad}
+    return keys, scope_ms
 
 
 @contextlib.contextmanager
@@ -3220,12 +3361,14 @@ def _steady_ms(step_s) -> float:
     return 1e3 * tail[len(tail) // 2]
 
 
-def _lm_trace(model, state, batch, start, total, kname) -> dict:
+def _lm_trace(model, state, batch, start, total, kname,
+              reference=False) -> dict:
     """Recipe steps ``start`` to ``total`` under torch.profiler from
     ``state`` = [params, Adam state], updated in place (the caller holds no
     other reference, so a step's peak is the untraced step's): device busy
     ms, idle share, the K5 / K6 device kernels' ms and launch counts, the
-    LM scopes' device ms and the steps' losses."""
+    LM scopes' device ms and the steps' losses (``reference``: the trace
+    also read through torch's event tree, as :func:`_device_split`)."""
     import torch
     from repro_torch.launch import train
 
@@ -3240,7 +3383,7 @@ def _lm_trace(model, state, batch, start, total, kname) -> dict:
 
     kernels = {n: DEVICE_KERNELS[n] for n in DEVICE_KERNELS
                if n.startswith(kname) and n != "flash_attention_f32"}
-    split = _device_split(steps, kernels, LM_SCOPES)
+    split = _device_split(steps, kernels, LM_SCOPES, reference)
     split["idle_share"] = 1.0 - split["device_busy_ms"] / \
         split["profiled_wall_ms"]
     split["losses"] = losses
@@ -3506,7 +3649,9 @@ def lm_train_phase(dev) -> dict:
             _reset_lm_counts()
             state = [params, opt]
             del params, opt
-            split = _lm_trace(model, state, batch, start, total, kname)
+            # deepseek's trace, the smallest, also through torch's tree
+            split = _lm_trace(model, state, batch, start, total, kname,
+                              name == "deepseek-moe-16b")
             traced = _lm_counts()
             losses += split["losses"]
             dev_kernel = "flash_attention_sm90" if kname == \
@@ -4024,28 +4169,188 @@ def _deepest_fit(name, cut, peak_at_cut, total) -> dict:
             "dry_runs": {k: peaks[k] for k in sorted(peaks)}}
 
 
-def dryrun_phase(dev, lm_train) -> dict:
+def _ep_dry_runs() -> dict:
+    """The partitioned dry runs of the ep phase's cells (``lower_cell(
+    partitioned=True)``, the rules replicating every param but the experts
+    as the ranks hold them): ``{"extra_rules", "prefill": {dtype: (record,
+    seconds)}, "train": (record, seconds)}``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.sharding import SINGLE_POD_RULES
+
+    rules = {k: None for k in SINGLE_POD_RULES if k not in ("batch",
+                                                           "expert")}
+    out = {"extra_rules": rules, "prefill": {}}
+    for cell, kinds in ((EP_PREFILL, ("float32", "bfloat16")),
+                        (EP_TRAIN, ("float32",))):
+        kind = "train" if cell is EP_TRAIN else "prefill"
+        for dtype in kinds:
+            t0 = time.perf_counter()
+            _, rec = dryrun.lower_cell(
+                EP_ARCH, None, cfg_override=_ep_cfg(cell["layers"], dtype),
+                mesh=make_production_mesh(shape=cell["grid"]),
+                shape_override=ShapeConfig("ep", cell["seq"], cell["batch"],
+                                           kind),
+                partitioned=True, extra_rules=rules)
+            row = (rec, time.perf_counter() - t0)
+            if kind == "train":
+                out["train"] = row
+            else:
+                out["prefill"][dtype] = row
+    return out
+
+
+def _ep_partitioned(ep, runs) -> dict:
+    """Part (e) of the dryrun phase: the partitioned dry runs of the ep
+    phase's cells (``runs``: :func:`_ep_dry_runs`) against what its ranks
+    recorded (``ep``: ep_phase's result)."""
+    t_part = time.perf_counter()
+    out = {"extra_rules": sorted(runs["extra_rules"])}
+
+    def groups(rec):
+        return {g: {k: [v["count"], v["bytes"]] for k, v in kinds.items()}
+                for g, kinds in rec["collectives_by_group"].items()}
+
+    cell = EP_PREFILL
+    for dtype in ("float32", "bfloat16"):
+        cfg = _ep_cfg(cell["layers"], dtype)
+        rec, secs = runs["prefill"][dtype]
+        got = groups(rec)
+        row = {"collectives": got, "kernel_calls": rec["kernel_calls"],
+               "peak_bytes_per_device": rec["peak_bytes_per_device"],
+               "flops_per_device": rec["flops_per_device"],
+               "collective_s": rec["roofline"]["collective_s"],
+               "dry_run_s": secs}
+        out[f"prefill_{dtype}"] = row
+        pred = _ep_predict(cfg, cell)
+        check(got == pred, f"(e) prefill {dtype}: dry run {got}, predicted "
+              f"{pred}")
+        for r in ep["ranks"]:
+            check(got == r["a"][dtype]["collectives"],
+                  f"(e) prefill {dtype}: dry run {got}, rank {r['rank']} "
+                  f"{r['a'][dtype]['collectives']}")
+            check(rec["kernel_calls"]["flash_attention"]
+                  == r["a"][dtype]["counts"]["flash_attention"],
+                  f"(e) prefill {dtype}: K5 {rec['kernel_calls']}, rank "
+                  f"{r['rank']} {r['a'][dtype]['counts']}")
+    cell = EP_TRAIN
+    cfg = _ep_cfg(cell["layers"], "float32")
+    rec, secs = runs["train"]
+    n = cell["steps"]
+    got = {g: {k: [c * n, b * n] for k, (c, b) in kinds.items()}
+           for g, kinds in groups(rec).items()}
+    trained = [r for r in ep["ranks"] if "b" in r]
+    gaps = {}
+    for r in trained:
+        check(got == r["b"]["collectives"],
+              f"(e) train: dry run x {n} {got}, rank {r['rank']} "
+              f"{r['b']['collectives']}")
+        k5 = rec["kernel_calls"]["flash_attention"] * n
+        check(k5 == r["b"]["counts"]["flash_attention"],
+              f"(e) train: K5 {k5}, rank {r['rank']} {r['b']['counts']}")
+        measured = r["b"]["max_memory_allocated"] - \
+            r["b"]["memory_left_by_a"]
+        gaps[f"rank{r['rank']}"] = \
+            rec["peak_bytes_per_device"] / measured - 1
+        check(abs(gaps[f"rank{r['rank']}"]) <= DRYRUN_PEAK_TOL,
+              f"(e) train: peak {rec['peak_bytes_per_device']} vs rank "
+              f"{r['rank']}'s {measured}")
+    pred = _ep_predict(cfg, cell, n)
+    check(got == pred, f"(e) train: dry run x {n} {got}, predicted {pred}")
+    out["train"] = {"collectives_one_step": groups(rec),
+                    "collectives_steps": got, "steps": n,
+                    "kernel_calls_one_step": rec["kernel_calls"],
+                    "peak_bytes_per_device": rec["peak_bytes_per_device"],
+                    "peak_gap_vs_ranks": gaps,
+                    "collective_s": rec["roofline"]["collective_s"],
+                    "dry_run_s": secs}
+    out["seconds"] = time.perf_counter() - t_part + sum(
+        v[1] for v in runs["prefill"].values()) + secs
+    emit({"dryrun_partitioned_ep": out})
+    return out
+
+
+def dry_runs(total=None, ep=False) -> dict:
+    """The dryrun phase's dry runs, on the CPU (``meta`` tensors; no
+    card work, so they run in a thread while nvcc builds the kernels,
+    before any run they predict): with ``total`` (the card's bytes) (a)
+    each LM_TRAIN step, (b) the deepest cut that fits ``total`` for the
+    configs cut by memory and (c) the full-size cells; with ``ep`` (e)
+    the ep cells partitioned.  Prints nothing: ``dryrun_phase`` emits the
+    rows and holds them against the card.  The launch counters before
+    and after are kept for (d)."""
+    from repro_torch.launch import dryrun
+
+    t_start = time.perf_counter()
+    out = {"launches_before": _all_launches(), "total": total, "a": {},
+           "b": {}, "c": []}
+    for name, cell in (LM_TRAIN if total else {}).items():
+        t0 = time.perf_counter()
+        rec = _train_peak(name, _lm_cfg(name).n_layers)
+        out["a"][name] = (rec, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for name, cell in (LM_TRAIN if total else {}).items():
+        if cell["layers"]:
+            out["b"][name] = _deepest_fit(name, cell["layers"],
+                                          out["a"][name][0]["peak_bytes"],
+                                          total)
+    out["b_seconds"] = time.perf_counter() - t0
+    for name in (DRYRUN_FULL if total else ()):
+        for shape in DRYRUN_FULL_SHAPES:
+            t0 = time.perf_counter()
+            _, rec = dryrun.lower_cell(name, shape)
+            rec["dry_run_s"] = time.perf_counter() - t0
+            out["c"].append(rec)
+    out["e"] = _ep_dry_runs() if ep else None
+    out["launches_after"] = _all_launches()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+class _Background(threading.Thread):
+    """``fn(*args)`` in a thread; :meth:`get` waits for it and returns its
+    result or raises its error."""
+
+    def __init__(self, fn, *args):
+        super().__init__(daemon=True)
+        self._fn, self._args = fn, args
+        self._result = self._error = None
+
+    def run(self):
+        try:
+            self._result = self._fn(*self._args)
+        except BaseException as e:   # raised again by get()
+            self._error = e
+
+    def get(self):
+        self.join()
+        if self._error is not None:
+            raise self._error
+        return self._result
+
+
+def dryrun_phase(dev, dry, lm_train=None, ep=None) -> dict:
     """The dry run (``launch.dryrun``) against the card (the docstring's
-    phase 15): (a) each LM_TRAIN run's step predicted against what the lm
-    train phase measured (peak, K5/K6 launches a step, FLOPs over the
-    step's time); (b) the deepest cut that fits the card for the configs
-    cut by memory; (c) full-size cells on the (16, 16) mesh; (d) no launch
-    counter moves."""
-    import torch
+    phase 15), from ``dry`` (:func:`dry_runs`' records): (a) each LM_TRAIN
+    run's step predicted against what the lm train phase measured (peak,
+    K5/K6 launches a step, FLOPs over the step's time); (b) the deepest
+    cut that fits the card for the configs cut by memory; (c) full-size
+    cells on the (16, 16) mesh; (d) no launch counter moved during the dry
+    runs; (e) with ``ep`` (the ep phase's result), the partitioned dry run
+    of the ep cells against its ranks.  (a)-(c) run with ``lm_train``."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import PEAK_FLOPS_BF16
     from repro_torch.models import build_model
     from repro_torch.utils import tree_bytes, tree_count
 
     smi = _smi()
-    counts_before = _all_launches()
-    res = {"card": smi, "tol": DRYRUN_PEAK_TOL}
+    res = {"card": smi, "tol": DRYRUN_PEAK_TOL,
+           "dry_runs_s": dry["seconds"]}
     # (a) each LM_TRAIN run's step
-    t_part = time.perf_counter()
-    for name, cell in LM_TRAIN.items():
+    for name, cell in (LM_TRAIN if lm_train else {}).items():
         cfg = _lm_cfg(name)
-        t0 = time.perf_counter()
-        rec = _train_peak(name, cfg.n_layers)
+        rec, secs = dry["a"][name]
         params = dryrun.param_structs(build_model(cfg, "meta"))
         row = lm_train[name]
         # the run's own peak: less what earlier phases left allocated
@@ -4067,7 +4372,7 @@ def dryrun_phase(dev, lm_train) -> dict:
                "steady_ms_per_step": row["steady_ms_per_step"],
                "tflops_per_s": rec["flops"] / step_s / 1e12,
                "share_of_bf16_peak": rec["flops"] / step_s / PEAK_FLOPS_BF16,
-               "dry_run_s": time.perf_counter() - t0}
+               "dry_run_s": secs}
         emit({"dryrun_vs_card": out})
         check(abs(gap) <= DRYRUN_PEAK_TOL,
               f"{name}: predicted peak {rec['peak_bytes']} vs the run's "
@@ -4075,39 +4380,31 @@ def dryrun_phase(dev, lm_train) -> dict:
         check(rec["kernel_calls"] == per_step,
               f"{name}: dry run {rec['kernel_calls']} vs card {per_step}")
         res[name] = out
-    res["a_seconds"] = time.perf_counter() - t_part
     # (b) the deepest cut that fits, for the configs cut by memory
-    t_part = time.perf_counter()
-    total = torch.cuda.mem_get_info()[1]
-    res["mem_get_info_total"] = total
-    for name, cell in LM_TRAIN.items():
+    res["mem_get_info_total"] = total = dry["total"]
+    for name, cell in (LM_TRAIN if lm_train else {}).items():
         if not cell["layers"]:
             continue
-        fit = _deepest_fit(name, cell["layers"], res[name]["predicted_peak"],
-                           total)
-        fit["cut_run"] = cell["layers"]
+        fit = dict(dry["b"][name], cut_run=cell["layers"])
         emit({"dryrun_deepest_fit": {"arch": name, "total": total, **fit}})
         check(cell["layers"] <= fit["deepest_fit"],
               f"{name}: the run's cut {cell['layers']} is deeper than the "
               f"deepest that fits, {fit['deepest_fit']}")
         res[name]["fit"] = fit
-    res["b_seconds"] = time.perf_counter() - t_part
+    res["b_seconds"] = dry["b_seconds"]
     # (c) full size on the production mesh
-    t_part = time.perf_counter()
-    for name in DRYRUN_FULL:
-        for shape in DRYRUN_FULL_SHAPES:
-            t0 = time.perf_counter()
-            _, rec = dryrun.lower_cell(name, shape)
-            rec["dry_run_s"] = time.perf_counter() - t0
-            emit({"dryrun_full": {k: v for k, v in rec.items()
-                                  if k != "notes"}})
-            check(rec["ok"], f"{name} {shape}: {rec}")
-    res["c_seconds"] = time.perf_counter() - t_part
+    for rec in (dry["c"] if lm_train else ()):
+        emit({"dryrun_full": {k: v for k, v in rec.items()
+                              if k != "notes"}})
+        check(rec["ok"], f"{rec['arch']} {rec['shape']}: {rec}")
+    # (e) the partitioned dry run of the ep cells
+    if ep is not None:
+        res["e"] = _ep_partitioned(ep, dry["e"])
+        res["e_seconds"] = res["e"]["seconds"]
     # (d) no launch
-    after = _all_launches()
-    check(after == counts_before,
-          f"launch counts moved during the dry runs: {counts_before} -> "
-          f"{after}")
+    check(dry["launches_after"] == dry["launches_before"],
+          f"launch counts moved during the dry runs: "
+          f"{dry['launches_before']} -> {dry['launches_after']}")
     print(smi)
     return res
 
@@ -4170,15 +4467,19 @@ def main(argv=None) -> int:
         phase("llm serve", llm_serve_phase, dev)
         print(_smi())
         return 0
-    if args.only == "lm_train":
+    if args.only in ("lm_train", "ep"):
+        lm = args.only == "lm_train"
+        dry = _Background(dry_runs, torch.cuda.mem_get_info()[1] if lm
+                          else None, not lm)
+        dry.start()
         phase("build", build_phase)
-        lm_train = phase("lm train", lm_train_phase, dev)
-        phase("dryrun", dryrun_phase, dev, lm_train)
-        print(_smi())
-        return 0
-    if args.only == "ep":
-        phase("build", build_phase)
-        phase("ep", ep_phase, dev)
+        dry = phase("dry runs (after the build)", dry.get)
+        if lm:
+            lm_train = phase("lm train", lm_train_phase, dev)
+            phase("dryrun", dryrun_phase, dev, dry, lm_train)
+        else:
+            ep = phase("ep", ep_phase, dev)
+            phase("dryrun", dryrun_phase, dev, dry, None, ep)
         print(_smi())
         return 0
     if args.only:
@@ -4187,7 +4488,11 @@ def main(argv=None) -> int:
                           "scenarios": scenarios_phase}[args.only], dev)
         print(_smi())
         return 0
+    # the dry runs (CPU only) while nvcc builds; held to the card at the end
+    dry = _Background(dry_runs, torch.cuda.mem_get_info()[1], True)
+    dry.start()
     phase("build", build_phase)
+    dry = phase("dry runs (after the build)", dry.get)
     worst = phase("kernels", sweep, dev)
     worst.update(phase("train kernels", train_sweep, dev))
     _, b_main = _train_setup("cpu")
@@ -4222,7 +4527,7 @@ def main(argv=None) -> int:
     ep = phase("ep", ep_phase, dev)
     for k, v in ep["launches"].items():
         launches[k] = launches.get(k, 0) + v
-    phase("dryrun", dryrun_phase, dev, lm_train)
+    phase("dryrun", dryrun_phase, dev, dry, lm_train, ep)
 
     kernels = []
     shapes = {"pinn_mlp_fwd1": MAIN, "pinn_mlp_fwd2": MAIN,

@@ -45,6 +45,7 @@ import os
 import time
 import traceback
 import uuid
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import torch
@@ -58,6 +59,9 @@ TIMEOUT_S = 300.0
 PEAK_FLOPS_BF16 = 989e12     # FLOP/s, bf16 on the tensor cores
 PEAK_FLOPS_FP32 = 67e12      # FLOP/s, float32 outside the tensor cores
 HBM_BW = 3.35e12             # bytes/s, HBM3
+# one direction of NVLink 4's 900 GB/s (18 links), the roofline's rate
+# for a device's collective operand bytes
+LINK_BW = 450e9              # bytes/s
 
 
 @dataclass(frozen=True)
@@ -102,6 +106,65 @@ class MeshPlan:
             n = self.size(entry)
             out[i] = -(-out[i] // n)
         return tuple(out)
+
+    @contextmanager
+    def fake_group(self):
+        """Rank 0 of a ``fake`` process group of ``n_devices`` ranks (no
+        peer, no payload moved: every collective returns at once) and the
+        plan's ``DeviceMesh`` over it: ``with plan.fake_group() as grid:``
+        gives a :class:`FakeRank`.  The mesh's group along each axis is a
+        ``new_group`` described by the axis' name (``"data"``,
+        ``"model"``), as :func:`make_grid_mesh`'s ranks describe theirs.
+        The group is torn down on exit, also after an error; another
+        process group may not be live."""
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        # registers the "fake" backend
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        if dist.is_initialized():
+            raise RuntimeError("a process group is live already")
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=self.n_devices)
+        try:
+            groups = {}
+            for i, axis in enumerate(self.axes):
+                stride = 1
+                for s in self.shape[i + 1:]:
+                    stride *= s
+                groups[axis] = dist.new_group(
+                    [k * stride for k in range(self.shape[i])],
+                    group_desc=axis)
+            ranks = torch.arange(self.n_devices).reshape(self.shape)
+            mesh = DeviceMesh.from_group([groups[a] for a in self.axes],
+                                         "cuda", mesh=ranks,
+                                         mesh_dim_names=self.axes)
+            yield FakeRank(self, mesh, groups)
+        finally:
+            dist.destroy_process_group()
+
+
+@dataclass(frozen=True)
+class FakeRank:
+    """Rank 0 of a :meth:`MeshPlan.fake_group`: the plan, its
+    ``DeviceMesh`` and the group along each axis."""
+
+    plan: MeshPlan
+    device_mesh: object
+    groups: dict
+
+    def expert_parallel(self):
+        """Rank (0, 0)'s ``models.expert_parallel.EPRank`` on the plan's
+        ``data`` and ``model`` axes, its ``Comm`` on the meta device (no
+        host staging; each collective still issued)."""
+        from repro_torch.core.halo import Comm
+        from repro_torch.models.expert_parallel import EPRank
+
+        return EPRank(data=self.plan.size("data"),
+                      model=self.plan.size("model"), d=0, m=0,
+                      data_group=self.groups["data"],
+                      model_group=self.groups["model"],
+                      comm=Comm(torch.device("meta")))
 
 
 def make_production_mesh(*, multi_pod: bool = False,

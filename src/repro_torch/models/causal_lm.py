@@ -33,8 +33,9 @@ On the ``meta`` device (the dry run, ``launch/dryrun.py``) ``init`` and
 and the entry points trace the step the card runs, the kernels counted, not
 launched.  The reference's sharding trees are ported: ``logical`` (the
 param tree's logical axes), ``param_specs``, ``cache_struct`` and
-``cache_specs`` (``models/sharding.py``); its ``constrain`` hints are not
-(no partitioner).
+``cache_specs`` (``models/sharding.py``), and so are its ``constrain``
+hints (``models/partition.py``: they act on the DTensors of the
+partitioned dry run and leave plain tensors as they are).
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import expert_parallel as EP
 from repro_torch.models import layers as L
+from repro_torch.models.partition import constrain, fsdp_gathered
 from repro_torch.models.sharding import add_layer_axis, specs_from_logical
 
 
@@ -205,6 +207,7 @@ class CausalLM:
             vp = params["vis_proj"]
             pe = batch["patch_embeds"].to(dtype) @ vp["w"].to(dtype) \
                 + vp["b"].to(dtype)
+            pe = constrain(pe, "batch", "seq", "act_embed")
             x = torch.cat([pe, x], dim=1)
         return x
 
@@ -243,7 +246,11 @@ class CausalLM:
                 policy=cfg.remat_policy)
 
         def block_fn(lp, h, lc):
-            return self.block.apply(cfg, lp, h, lc, ctx)
+            # the residual stream's layout between layers (the reference's
+            # sequence-parallel lever, "res_seq")
+            h = constrain(h, "batch", "res_seq", "act_embed")
+            h, nc = self.block.apply(cfg, lp, h, lc, ctx)
+            return constrain(h, "batch", "res_seq", "act_embed"), nc
 
         x, new_main = L.scan_layers(block_fn, params["layers"], x, main_cache,
                                     remat=cfg.remat, policy=cfg.remat_policy)
@@ -260,7 +267,10 @@ class CausalLM:
 
         ``plain=True`` runs the kernels' plain versions on CUDA tensors too
         (the card check compares the two paths); CPU tensors always take
-        them."""
+        them.  Under sharding rules (the partitioned dry run) ``params``
+        are read through ``fsdp_gathered``: FSDP-split weights gathered
+        where first read, each layer's inside its layer."""
+        params = fsdp_gathered(params)
         x, nc = self._hidden(params, batch, cache, pos, plain)
         nv = self.cfg.vocab if self.cfg.padded_vocab != self.cfg.vocab \
             else None
@@ -283,8 +293,9 @@ class CausalLM:
         ``params``; ``plain=True`` as in :meth:`forward`.  MoE models add
         ``0.01 *`` the mean load-balance term of their layers.  The VLM's
         patch positions carry no next-token targets: they are dropped
-        before the head."""
+        before the head.  ``params`` are read as in :meth:`forward`."""
         cfg = self.cfg
+        params = fsdp_gathered(params)
         x, ys = self._hidden(params, batch, plain=plain)
         if cfg.family == "vlm" and "patch_embeds" in batch:
             x = x[:, batch["patch_embeds"].shape[1]:]

@@ -25,8 +25,9 @@ step).  The cross cache is filled once from the encoded frames
 tests fill theirs.
 
 The reference's ``logical`` / ``cache_specs`` sharding trees are ported
-(``models/sharding.py``); its ``constrain`` hints are not (the port has
-no partitioner).
+(``models/sharding.py``), and so is its ``constrain`` hint on the
+encoder's input (``models/partition.py``; the identity on plain
+tensors).
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from repro_torch.core.nets import map_tree
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.causal_lm import CausalLM, _dtype
+from repro_torch.models.partition import constrain
 from repro_torch.models.sharding import add_layer_axis, specs_from_logical
 
 
@@ -172,7 +174,7 @@ class EncDecModel(CausalLM):
         """The encoder over ``frames`` (cast to the config's dtype): its
         memory (B, F, d_model) after ``enc_norm``."""
         cfg = self.cfg
-        x = frames.to(_dtype(cfg))
+        x = constrain(frames.to(_dtype(cfg)), "batch", "seq", "act_embed")
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
         def enc_fn(lp, h, lc):

@@ -11,7 +11,11 @@ mesh).  :func:`use_ep` makes one of two contexts current:
   (m+1) E/M) of every MoE layer (:func:`shard_experts`, or
   ``CausalLM.init(seed, experts=(m, M))``), and it reduces over its two
   groups through :class:`repro_torch.core.halo.Comm` (``gloo``; staged
-  through pinned host buffers on a card);
+  through pinned host buffers on a card).  The partitioned dry run's
+  rank 0 of a fake grid has one too (``launch/mesh.py``'s
+  ``FakeRank.expert_parallel()``): its ``Comm`` on the meta device stages
+  nothing and issues each ``dist.all_reduce`` all the same, so the dry
+  run records the ranks' collectives;
 * :class:`EPPlan` — the one-process twin of a (D, M) grid: all the tokens
   and all the experts in this process, every (d, m) part run here and
   summed over m in the order 0 .. M-1, with no collective.  The CPU tests

@@ -34,8 +34,11 @@ conventions:
 * Every init function has a twin ``*_logical`` returning the same tree
   with tuples of LOGICAL axis names for leaves (the reference's; mapped to
   mesh axes by ``models/sharding.py``).  The reference's ``constrain``
-  (GSPMD sharding hints on activations) has no counterpart: the port has
-  no partitioner.
+  sites (sharding hints on activations) are here at the same places with
+  the same logical names (``models/partition.py::constrain``): on
+  DTensors, in the partitioned dry run, they redistribute; on plain
+  tensors they are the identity.  K5 and K6 then take the local shards
+  of head- and batch-sharded DTensors (``partition.on_shards``).
 """
 from __future__ import annotations
 
@@ -47,6 +50,10 @@ import torch.nn.functional as F
 
 from repro_torch.core.nets import map_tree, map_trees, tree_leaves
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.models.partition import (constrain, fsdp_gathered,
+                                          is_dtensor, on_shards,
+                                          policy_active, ungathered,
+                                          unsharded, write_at)
 
 # ------------------------------------------------------------------------- init
 
@@ -164,7 +171,9 @@ def chunked_attention(q, k, v, *, causal=True, q_offset=0, block_q=512,
             fn = FA.flash_attention_train
         else:
             fn = FA.flash_attention
-        return fn(q, k, v, causal=causal, block_q=block_q)
+        return on_shards(functools.partial(fn, causal=causal,
+                                           block_q=block_q),
+                         q, (k, v), group=q.shape[2] // k.shape[2])
     return FA.attention_blocks(q, k, v, causal=causal, q_offset=q_offset,
                                kv_len=kv_len, block_q=block_q)
 
@@ -210,7 +219,8 @@ def gqa_query(p, x, n_heads, head_dim, dtype):
     q = x @ p["wq"].to(dtype)
     if "bq" in p:
         q = q + p["bq"].to(dtype)
-    return q.reshape(B, S, n_heads, head_dim)
+    return constrain(q.reshape(B, S, n_heads, head_dim), "batch", "seq",
+                     "heads", None)
 
 
 def gqa_project(p, x, n_heads, n_kv, head_dim, dtype):
@@ -245,12 +255,12 @@ def attention_block(p, x, *, cfg, positions, cache=None, pos=None,
         new_cache = None
     else:
         if k.shape[1] == 1:
-            ck, cv = cache["k"].clone(), cache["v"].clone()
-            ck[:, pos] = k[:, 0].to(ck.dtype)
-            cv[:, pos] = v[:, 0].to(cv.dtype)
+            ck, cv = write_at(cache["k"], k, pos), write_at(cache["v"], v, pos)
         else:
             ck, cv = _scatter_prefill(cache["k"], k), \
                 _scatter_prefill(cache["v"], v)
+        ck = constrain(ck, "batch", "kv_seq", "kv_heads", None)
+        cv = constrain(cv, "batch", "kv_seq", "kv_heads", None)
         new_cache = {"k": ck, "v": cv}
         kv_len = torch.full((x.shape[0],), pos + 1, dtype=torch.int64,
                             device=x.device)
@@ -284,6 +294,7 @@ def swiglu_logical():
 def swiglu(p, x):
     dt = x.dtype
     h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wi"].to(dt))
+    h = constrain(h, "batch", "seq", "ff")
     return h @ p["wo"].to(dt)
 
 
@@ -305,6 +316,7 @@ def gelu_mlp(p, x):
     """The reference's ``jax.nn.gelu`` is the tanh approximation."""
     dt = x.dtype
     h = F.gelu(x @ p["wi"].to(dt) + p["bi"].to(dt), approximate="tanh")
+    h = constrain(h, "batch", "seq", "ff")
     return h @ p["wo"].to(dt) + p["bo"].to(dt)
 
 
@@ -321,7 +333,8 @@ def embedding_logical():
 def embed(p, tokens, dtype):
     # gather, then cast: the same values as the reference's cast-then-take,
     # without casting the whole table
-    return p["table"][tokens].to(dtype)
+    return constrain(p["table"][tokens].to(dtype), "batch", "seq",
+                     "act_embed")
 
 
 def _mask_padded_vocab(logits, n_valid):
@@ -333,7 +346,8 @@ def _mask_padded_vocab(logits, n_valid):
 
 def unembed(p, x, n_valid=None):
     logits = x @ p["table"].to(x.dtype).T
-    return _mask_padded_vocab(logits, n_valid)
+    return _mask_padded_vocab(constrain(logits, "batch", "seq", "vocab"),
+                              n_valid)
 
 
 def init_lm_head(gen, d_model, vocab, std=0.02):
@@ -345,13 +359,15 @@ def lm_head_logical():
 
 
 def lm_head(p, x, n_valid=None):
-    return _mask_padded_vocab(x @ p["w"].to(x.dtype), n_valid)
+    logits = constrain(x @ p["w"].to(x.dtype), "batch", "seq", "vocab")
+    return _mask_padded_vocab(logits, n_valid)
 
 
 # ------------------------------------------------------------------------ loss
 
 def _token_nll(logits, labels):
     """Per-token NLL: log-sum-exp of the logits less the label's logit."""
+    logits = unsharded(logits, -1)
     lse = torch.logsumexp(logits, dim=-1)
     # gather takes int64 indices; the dry run's batch holds the
     # reference's int32 labels
@@ -374,6 +390,7 @@ class _ChunkNLL(torch.autograd.Function):
     @staticmethod
     def _nll(xi, wt, li, mi, transpose_w, n_valid):
         logits = (xi @ wt.T) if transpose_w else (xi @ wt)
+        logits = constrain(logits, "batch", None, "vocab")
         logits = _mask_padded_vocab(logits.float(), n_valid)
         return torch.sum(_token_nll(logits, li) * mi)
 
@@ -474,9 +491,18 @@ def scan_layers(block_fn, stacked_params, x, cache=None, remat=False,
     enabled): ``policy="full"`` keeps only the per-layer carries,
     ``"dots"`` also the products' outputs (``aten.mm`` / ``addmm`` /
     ``bmm``), trading memory for recompute."""
+    stacked_params = ungathered(stacked_params)
+    n_layers = tree_leaves(stacked_params)[0].shape[0]
+    if is_dtensor(tree_leaves(stacked_params)[0]):
+        # each layer's FSDP-sharded weights gathered inside the layer (and
+        # again in its remat recompute)
+        inner = block_fn
+
+        def block_fn(lp, h, lc):
+            with policy_active():
+                return inner(fsdp_gathered(lp), h, lc)
     fn = _remat(block_fn, policy) if remat and torch.is_grad_enabled() \
         else block_fn
-    n_layers = tree_leaves(stacked_params)[0].shape[0]
     new = []
     for l in range(n_layers):
         lc = None if cache is None else map_tree(lambda t: t[l], cache)

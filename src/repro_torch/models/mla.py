@@ -16,8 +16,8 @@ an effective head of ``kv_lora + rope_dim`` with float32 scores, softmax and
 context.
 
 The reference's ``logical`` / ``cache_logical`` sharding trees are ported
-(``models/sharding.py``); its ``constrain`` hints are not (the port has no
-partitioner).
+(``models/sharding.py``), and so are its ``constrain`` hints
+(``models/partition.py``; the identity on plain tensors).
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.causal_lm import BlockDef, register_block
+from repro_torch.models.partition import constrain, write_at
 from repro_torch.models.sharding import add_layer_axis
 
 
@@ -57,6 +58,7 @@ def _project_q(p, x, cfg, dtype, positions):
     H, qk = cfg.n_heads, cfg.nope_dim + cfg.rope_dim
     cq = L.rms_norm(x @ p["wdq"].to(dtype), p["q_norm"], cfg.norm_eps)
     q = (cq @ p["wuq"].to(dtype)).reshape(B, S, H, qk)
+    q = constrain(q, "batch", "seq", "heads", None)
     q_nope, q_rope = q[..., :cfg.nope_dim], q[..., cfg.nope_dim:]
     return q_nope, L.apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -91,9 +93,10 @@ def _absorbed_decode(p, x, cfg, dtype, positions, cache, pos):
     H = cfg.n_heads
     q_nope, q_rope = _project_q(p, x, cfg, dtype, positions)
     ckv_new, kr_new = _latents(p, x, cfg, dtype, positions)
-    ckv, kr = cache["ckv"].clone(), cache["kr"].clone()
-    ckv[:, pos:pos + S] = ckv_new.to(ckv.dtype)
-    kr[:, pos:pos + S] = kr_new.to(kr.dtype)
+    ckv = constrain(write_at(cache["ckv"], ckv_new, pos), "batch", "kv_seq",
+                    None)
+    kr = constrain(write_at(cache["kr"], kr_new, pos), "batch", "kv_seq",
+                   None)
     new_cache = {"ckv": ckv, "kr": kr}
 
     wuk = p["wuk"].to(dtype).reshape(cfg.kv_lora, H, cfg.nope_dim)

@@ -49,6 +49,7 @@ from repro_torch.models import dense
 from repro_torch.models import expert_parallel as EP
 from repro_torch.models import layers as L
 from repro_torch.models.causal_lm import BlockDef, register_block
+from repro_torch.models.partition import constrain, expert_einsum
 from repro_torch.models.sharding import add_layer_axis
 
 
@@ -156,10 +157,13 @@ def _dispatch(cfg: ModelConfig, xg, idx, gate, ex, m: int = 0):
     buf = torch.zeros((G * E_loc * C + 1, d), dtype=dt, device=dev)
     buf = buf.index_put((dst.reshape(-1),), vals.reshape(-1, d))
     buf = buf[:-1].reshape(G, E_loc, C, d)
+    buf = constrain(buf, "batch", "expert", None, None)
 
-    h = F.silu(torch.einsum("gecd,edf->gecf", buf, ex["wg"].to(dt)))
-    h = h * torch.einsum("gecd,edf->gecf", buf, ex["wi"].to(dt))
-    out_buf = torch.einsum("gecf,efd->gecd", h, ex["wo"].to(dt))
+    h = F.silu(expert_einsum("gecd,edf->gecf", buf, ex["wg"].to(dt)))
+    h = h * expert_einsum("gecd,edf->gecf", buf, ex["wi"].to(dt))
+    h = constrain(h, "batch", "expert", None, None)
+    out_buf = expert_einsum("gecf,efd->gecd", h, ex["wo"].to(dt))
+    out_buf = constrain(out_buf, "batch", "expert", None, None)
 
     # combine: a gather over (token, slot), gated, summed over the k slots
     back = out_buf.reshape(G * E_loc * C, d)[slot] * keep[..., None].to(dt)
@@ -173,7 +177,7 @@ def moe_ffn(cfg: ModelConfig, p, x):
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
     G = _n_groups(T)
-    xg = x.reshape(G, T // G, d)
+    xg = constrain(x.reshape(G, T // G, d), "batch", None, None)
     probs, gate, idx = route(cfg, p, xg)
 
     # load-balance aux (Switch-style): E * sum_e f_e * p_e, f_e from the

@@ -16,11 +16,12 @@ Default mapping (single-pod):
 
 Multi-pod adds ``batch -> (pod, data)``.
 
-The port runs on one device and has no partitioner: the specs say how a
-tree WOULD be laid out on a mesh, and the dry run (``launch/dryrun.py``)
-turns them into per-device bytes.  The reference's ``constrain`` (a
-``with_sharding_constraint`` hint to GSPMD inside the models) has no
-counterpart, and the models carry no call sites for it.
+The specs say how a tree WOULD be laid out on a mesh: the dry run
+(``launch/dryrun.py``) turns them into per-device bytes, and its
+partitioned form lays the trees out as DTensors.  That side, with the
+reference's ``constrain`` (a ``with_sharding_constraint`` hint inside
+the models, at the reference's sites), is ``models/partition.py``: this
+module stays free of torch.
 """
 from __future__ import annotations
 

@@ -46,6 +46,8 @@ sharding trees (``models/sharding.py``).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -53,6 +55,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import wkv6 as WK
 from repro_torch.models import layers as L
 from repro_torch.models.causal_lm import BlockDef, register_block
+from repro_torch.models.partition import constrain, on_shards
 from repro_torch.models.sharding import add_layer_axis
 
 
@@ -167,7 +170,7 @@ def mamba2_apply(cfg: ModelConfig, lp, x, lc, ctx):
     f32 = torch.float32
 
     h = L.rms_norm(x, lp["norm"], cfg.norm_eps)
-    proj = h @ lp["in_proj"].to(dt_f)
+    proj = constrain(h @ lp["in_proj"].to(dt_f), "batch", "seq", "ff")
     xz, z, Bm, Cm, dt_raw = torch.split(proj, [d_in, d_in, N, N, H], dim=-1)
     conv_in = torch.cat([xz, Bm, Cm], dim=-1)
     conv_state = None if lc is None else lc["conv"]
@@ -304,7 +307,9 @@ def rwkv6_apply(cfg: ModelConfig, lp, x, lc, ctx):
             wkv = WK.wkv6_train
         else:
             wkv = WK.wkv6
-        y = wkv(r4, k4, v4, w4, u4, chunk=min(cfg.ssm_chunk, T))
+        # each device's heads of its batch rows (K6 takes local tensors)
+        y = on_shards(functools.partial(wkv, chunk=min(cfg.ssm_chunk, T)),
+                      r4, (k4, v4, w4), (u4,))
         new_cache = None
     else:
         y1, new_state = _wkv6_step(r4[:, 0], k4[:, 0], v4[:, 0], w4[:, 0],
@@ -319,6 +324,7 @@ def rwkv6_apply(cfg: ModelConfig, lp, x, lc, ctx):
     cm = lp["cm"]
     last_c = lc["cm_shift"] if decode else None
     kc = _token_shift(cm_h, cm["mu_k"], last_c) @ cm["wk"].to(dt_f)
+    kc = constrain(kc, "batch", "seq", "ff")
     x = x + (torch.square(F.relu(kc)) @ cm["wv"].to(dt_f))
 
     if decode:

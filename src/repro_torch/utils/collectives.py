@@ -26,13 +26,28 @@ kind                  ``c10d`` ops                                operand bytes
 
 A ``recv_`` is logged with no kind: its bytes are counted once, at the
 sender.  Other ``c10d`` ops (barriers, broadcasts) are logged with no
-kind either.  :func:`collective_bytes` and :func:`top_collectives` are
-the reference's functions over a record instead of HLO text.
+kind either.
 
-The reference's ``named_scope_counts`` has its counterpart in
-``obs.profiling.scope_counts`` (the ``dd-*`` scopes of one step).  Its
-``op_histogram`` (opcodes of the partitioned module) has none yet: it
-goes with the partitioned dry run (ROADMAP Queue 1).
+The functional collectives that ``torch.distributed.tensor`` (DTensor)
+issues when it redistributes (``_c10d_functional.all_reduce``,
+``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+``all_to_all_single``, their ``_coalesced`` forms and the in-place
+``all_reduce_``; and ``_dtensor.shard_dim_alltoall``, DTensor's move of a
+split from one dim to another, an all-to-all) are logged alike, each
+once: their operand is the input
+(an all-gather's is the output over the group, a reduce-scatter's the
+output times the group, as ``hlo.py`` derives them), their group is
+resolved from the op's group name.  ``wait_tensor`` is no collective.
+A mode sees a DTensor's local ops only when it lets DTensor handle the
+op first: the recorder returns ``NotImplemented`` for every op on a
+tensor subclass, so DTensor's redistributions reach it as plain ops.
+
+:func:`collective_bytes` and :func:`top_collectives` are the reference's
+functions over a record instead of HLO text; :func:`op_histogram` is its
+``op_histogram`` over the aten ops one rank ran (``launch/dryrun.py``
+counts them in the partitioned dry run).  Its ``named_scope_counts`` has
+its counterpart in ``obs.profiling.scope_counts`` (the ``dd-*`` scopes of
+one step).
 """
 from __future__ import annotations
 
@@ -62,6 +77,21 @@ _OPS = {
     "alltoall_": ("all-to-all", "input"),
     "alltoall_base_": ("all-to-all", "input"),
     "send": ("collective-permute", "tensors"),
+}
+
+# the functional collectives (namespace _c10d_functional): the input is
+# the operand; the group name is the last string argument
+_FUNCTIONAL = {
+    "all_reduce": "all-reduce",
+    "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
 }
 
 # HLO's element type names
@@ -97,6 +127,27 @@ class Collective:
     sig: str                   # the operand, e.g. "f32[1024,2048]"
     scope: str                 # the enclosing record_function names, "/"
     ms: float | None = field(default=None)   # call to completion
+
+
+def subclassed(types) -> bool:
+    """An op's ``types`` hold a tensor subclass other than a FakeTensor
+    (DTensor's sharding propagation runs on those)."""
+    return any(t is not torch.Tensor and t.__name__ != "FakeTensor"
+               for t in types)
+
+
+def _named_group(args):
+    """The ``ProcessGroup`` named by a functional collective's last string
+    argument, else None."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    names = [a for a in args if isinstance(a, str)]
+    if not names:
+        return None
+    try:
+        return _resolve_process_group(names[-1])
+    except (RuntimeError, ValueError, KeyError):
+        return None
 
 
 def _unbox_group(a):
@@ -135,13 +186,20 @@ class CollectiveRecorder(TorchDispatchMode):
             elif name == "_record_function_exit" and stack:
                 stack.pop()
             return func(*args, **kwargs)
-        if ns != "c10d":
+        if subclassed(types):
+            return NotImplemented
+        if (ns == "_c10d_functional" and name in _FUNCTIONAL) or \
+                (ns == "_dtensor" and name == "shard_dim_alltoall"):
+            pg = _named_group(args)
+            kind, where = _FUNCTIONAL.get(name, "all-to-all"), "functional"
+        elif ns == "c10d":
+            groups = [g for g in map(_unbox_group, args) if g is not None]
+            pg = groups[0] if groups else None
+            kind, where = _OPS.get(name, (None, "tensors"))
+        else:
             return func(*args, **kwargs)
-        groups = [g for g in map(_unbox_group, args) if g is not None]
-        pg = groups[0] if groups else None
         size = pg.size() if pg is not None else 1
-        kind, where = _OPS.get(name, (None, "tensors"))
-        if where == "tensors":
+        if where in ("tensors", "functional"):
             operand = _tensors(args[0])
         elif where == "input":
             operand = _tensors(args[1])
@@ -211,6 +269,13 @@ def top_collectives(record, n: int = 12) -> list[dict]:
            for c in _counted(record)]
     out.sort(key=lambda d: -d["bytes"])
     return out[:n]
+
+
+def op_histogram(counts, top: int = 25) -> list[tuple[str, int]]:
+    """The reference's ``op_histogram``: ``[(op, count)]``, most frequent
+    first (ties by name), of a ``{op name: count}`` of the ops one rank
+    ran, the ``top`` first."""
+    return sorted(counts.items(), key=lambda kv: (-kv[1], kv[0]))[:top]
 
 
 def by_group(record) -> dict:

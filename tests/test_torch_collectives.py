@@ -12,6 +12,13 @@ CPU devices and parses the HLO.  ``collective_bytes`` must agree kind by
 kind, in counts and in bytes.  The expert-parallel forward's model-group
 all-reduce is held to the reference's ``psum`` the same way, read with
 both packages' ``top_collectives``.
+
+The functional collectives that DTensor issues when it redistributes
+(the partitioned dry run's) are held to the same programs: on a
+``DeviceMesh`` over the grid's groups, Partial -> Replicate is the
+``psum``, Shard -> Replicate the ``all_gather``, Partial -> Shard the
+``psum_scatter`` and a split moved from dim 0 to dim 1 the
+``all_to_all``, each recorded once with the reference's kind and bytes.
 """
 import dataclasses
 import os
@@ -200,3 +207,37 @@ def test_recorder_logs_scopes_and_groups_and_ignores_other_ops(fake_grid):
     assert groups["data"]["all-reduce"]["bytes"] == 12
     assert groups["model"]["all-reduce"]["bytes"] == 10
     assert C.collective_bytes(rec.record)["total_bytes"] == 22.0
+
+
+_MOVES = {   # kind: (local rows, from, to) over the model mesh dim
+    "all-reduce": (ROWS, "partial", "replicate"),
+    "all-gather": (ROWS, "shard0", "replicate"),
+    "reduce-scatter": (ROWS * M, "partial", "shard0"),
+    "all-to-all": (ROWS, "shard0", "shard1"),
+}
+
+
+@pytest.mark.parametrize("kind", list(_MOVES))
+def test_dtensor_redistributions_equal_the_reference_hlo(reference,
+                                                         fake_grid, kind):
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard)
+
+    place = {"partial": Partial(), "replicate": Replicate(),
+             "shard0": Shard(0), "shard1": Shard(1)}
+    mesh = DeviceMesh.from_group([fake_grid["data"], fake_grid["model"]],
+                                 "cuda", mesh=torch.arange(8).reshape(2, M),
+                                 mesh_dim_names=("data", "model"))
+    rows, src, dst = _MOVES[kind]
+    x = DTensor.from_local(torch.ones(rows, COLS, device="meta"), mesh,
+                           [Replicate(), place[src]], run_check=False)
+    with C.CollectiveRecorder() as rec:
+        x.redistribute(mesh, [Replicate(), place[dst]])
+    got = C.collective_bytes(rec.record)
+    assert got == reference[kind]
+    assert got["counts"] == {kind: 1}
+    [c] = [c for c in rec.record if c.kind is not None]
+    assert (c.group, c.group_desc) == (M, "model")
+    assert c.op in ("all_reduce", "all_gather_into_tensor",
+                    "reduce_scatter_tensor", "shard_dim_alltoall")

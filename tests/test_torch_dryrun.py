@@ -67,16 +67,28 @@ from repro.launch import dryrun
 dryrun._UNROLL_MEASURE = False
 dryrun.make_production_mesh = lambda multi_pod=False: jax.make_mesh(
     (2, 4), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+keep = ("memory", "param_count", "active_param_count", "model_flops",
+        "mesh", "n_devices", "collectives")
 for arch in {archs!r}:
     for shape in {shapes!r}:
         _, _, rec = dryrun.lower_cell(arch, shape,
                                       cfg_override=get_config(arch).reduced())
-        keep = ("memory", "param_count", "active_param_count", "model_flops",
-                "mesh", "n_devices")
         print("REC " + json.dumps({{"arch": arch, "shape": shape,
                                    **{{k: rec[k] for k in keep}}}}),
               flush=True)
+# the options, on the first subprocess's dense prefill
+for arch in {archs!r}[:1]:
+    for tag, kw in OPTIONS.items():
+        _, _, rec = dryrun.lower_cell(arch, "prefill_32k",
+                                      cfg_override=get_config(arch).reduced(),
+                                      **kw)
+        print("REC " + json.dumps({{"arch": arch, "shape": tag,
+                                   **{{k: rec[k] for k in keep}}}}),
+              flush=True)
 """
+# lower_cell options held against the reference's on a dense prefill
+OPTIONS = {"bf16_params": {"bf16_params": True},
+           "extra_rules": {"extra_rules": {"embed": None, "vocab": None}}}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -98,8 +110,8 @@ def ref_records():
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     env["JAX_PLATFORMS"] = "cpu"
     procs = [subprocess.Popen(
-        [sys.executable, "-c", REF_CODE.format(archs=archs,
-                                               shapes=SLICE_SHAPES)],
+        [sys.executable, "-c", f"OPTIONS = {OPTIONS!r}\n"
+         + REF_CODE.format(archs=archs, shapes=SLICE_SHAPES)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for archs in (SLICE_ARCHS[:2], SLICE_ARCHS[2:5], SLICE_ARCHS[5:])]
     cache = {}
@@ -421,3 +433,45 @@ def test_train_step_leaves_no_tensor_in_reference_cycles(arch):
         gc.set_debug(0)
         gc.enable()
     assert not held, [tuple(t.shape) for t in held]
+
+
+# ------------------------------------------------ the partitioned dry run
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "deepseek-moe-16b"])
+def test_partitioned_collective_bytes_near_the_reference(ref_records, arch,
+                                                         shape):
+    """Rank 0's collective operand bytes against the reference's
+    partitioned HLO on the same (2, 4) mesh, within [0.5x, 2x]: DTensor
+    issues one collective a redistribution in bf16 where XLA on the CPU
+    combines them and all-reduces the bf16 products' sums in float32.
+    The counts are not compared.  All 21 cells stand in ``PERF.md`` §7."""
+    _, rec = dryrun.lower_cell(arch, shape,
+                               cfg_override=ARCHS[arch].reduced(), mesh=MESH,
+                               partitioned=True)
+    got = rec["collectives"]["total_bytes"]
+    want = ref_records(arch, shape)["collectives"]["total_bytes"]
+    assert 0.5 * want <= got <= 2 * want, (got, want)
+    assert set(rec) >= KEYS | {"collectives", "collectives_by_group",
+                               "top_collectives", "peak_bytes_per_device",
+                               "hlo_ops"}
+    assert "collective_s" in rec["roofline"]
+
+
+@pytest.mark.parametrize("option", list(OPTIONS))
+def test_options_give_the_reference_s_argument_bytes(ref_records, option):
+    """``bf16_params`` and ``extra_rules`` on the dense prefill: the
+    argument and output bytes per device are the reference's, and the
+    option moves them."""
+    arch = SLICE_ARCHS[0]
+    kw = OPTIONS[option]
+    _, base = dryrun.lower_cell(arch, "prefill_32k",
+                                cfg_override=ARCHS[arch].reduced(), mesh=MESH)
+    _, rec = dryrun.lower_cell(arch, "prefill_32k",
+                               cfg_override=ARCHS[arch].reduced(), mesh=MESH,
+                               **kw)
+    want = ref_records(arch, option)["memory"]
+    for k in ("argument_size_in_bytes", "output_size_in_bytes"):
+        assert rec["memory"][k] == want[k], k
+    assert rec["memory"]["argument_size_in_bytes"] != \
+        base["memory"]["argument_size_in_bytes"]

@@ -60,7 +60,8 @@ def test_scan_sees_the_whole_port():
                  "launch/inverse_heat_map.py",
                  "launch/navier_stokes_cavity.py", "models/sharding.py",
                  "launch/dryrun.py", "utils/__init__.py",
-                 "utils/collectives.py", "models/expert_parallel.py"):
+                 "utils/collectives.py", "models/expert_parallel.py",
+                 "models/partition.py"):
         assert must in names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core") and not _forbidden("jaxtyping_x")

@@ -35,6 +35,7 @@ from repro_torch.models import build_model
 from repro_torch.models import expert_parallel as EP
 from repro_torch.models import moe as TM
 from repro_torch.optim import adam as adam_lib
+from repro_torch.utils import collectives as C
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D, M = 2, 4
@@ -243,6 +244,28 @@ def _np(tree):
     return {k: v.detach().numpy() for k, v in _flat(tree).items()}
 
 
+def _by_group(record) -> dict:
+    return {g: {k: [v["count"], v["bytes"]] for k, v in kinds.items()}
+            for g, kinds in C.by_group(record).items()}
+
+
+def _recorded_steps(p_r, b_r) -> dict:
+    """The collectives of the rank's prefill and of its first training
+    step (the dry run's cells: tokens and labels, no loss mask), recorded
+    by group."""
+    model = build_model(_model_cfg(1.25), "cpu")
+    out = {}
+    with C.CollectiveRecorder() as rec:
+        model.prefill(p_r, {"tokens": b_r["tokens"]})
+    out["prefill"] = _by_group(rec.record)
+    batch = {k: b_r[k] for k in ("tokens", "labels")}
+    with C.CollectiveRecorder() as rec:
+        lm_train_step(model, p_r, adam_lib.init_adam(p_r), batch, 0, LR,
+                      STEPS)
+    out["train"] = _by_group(rec.record)
+    return out
+
+
 def _ep_rank(grid, inp_path):
     """One rank of the (2, 4) grid: the layer and the model at both
     capacity factors on its data shard and its experts, with and without
@@ -265,6 +288,7 @@ def _ep_rank(grid, inp_path):
                        "g": [t.numpy() for t in g], "loss": float(loss),
                        "gmodel": _np(gtree), "gn": float(gn),
                        "losses": losses, "trained": _np(trained)}
+        out["recorded"] = _recorded_steps(p_r, b_r)
         # module 5 undone: x enters with no backward all-reduce
         ep.copy_to_model = lambda t: t
         out["no_copy_gx"] = _layer_run(_cfg(1.25), lp_r, x, cot)[2][-1] \
@@ -512,3 +536,33 @@ def test_moe_shard_map_checks_the_experts_it_holds():
     with EP.use_ep(EP.EPPlan(D, 3)):
         with pytest.raises(ValueError, match="do not split"):
             TM.moe_ffn_shardmap(cfg, lp, x)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_partitioned_dry_run_predicts_every_rank_s_collectives(runs, kind):
+    """The partitioned dry run of the (2, 4) cell (``moe_shard_map``, the
+    rules replicating every param but the experts, as the ranks hold
+    them) issues, as rank 0, exactly the collectives every ``gloo`` rank
+    recorded in its prefill and in its first training step: group, kind,
+    count and bytes."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models.sharding import SINGLE_POD_RULES
+
+    extra = {k: None for k in SINGLE_POD_RULES if k not in ("batch",
+                                                           "expert")}
+    _, rec = dryrun.lower_cell(
+        "deepseek-moe-16b", None, cfg_override=_model_cfg(1.25),
+        mesh=mesh_lib.make_production_mesh(shape=(D, M)),
+        shape_override=ShapeConfig("ep", S, B, kind), partitioned=True,
+        extra_rules=extra)
+    got = {g: {k: [v["count"], v["bytes"]] for k, v in kinds.items()}
+           for g, kinds in rec["collectives_by_group"].items()}
+    assert got and set(got) <= {"data", "model"}
+    for r in runs["ranks"]:
+        assert r["recorded"][kind] == got, (r["d"], r["m"])
+    with pytest.raises(ValueError, match="replicate"):
+        dryrun.lower_cell(
+            "deepseek-moe-16b", None, cfg_override=_model_cfg(1.25),
+            mesh=mesh_lib.make_production_mesh(shape=(D, M)),
+            shape_override=ShapeConfig("ep", S, B, kind), partitioned=True)
