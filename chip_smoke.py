@@ -289,8 +289,24 @@ any of them ends the run with a non-zero exit code and no result line:
    EP_PARAM_TOL (scaled by max(1, max |want|)); the twin's and each
    rank's peak within DRYRUN_PEAK_TOL of the dry run of its step (a
    rank's as ``moe_ffn`` over its E/M experts); then EP_TIME_STEPS more
-   steps unrecorded (the recorder's cost).  ``ep_prefill``,
-   ``ep_train`` and one ``ep_rank`` line a rank;
+   steps unrecorded (the recorder's cost); (c) a sequence-split decode
+   (``models/partition.py::split_kv_attention``): llama3.2-1b at its
+   published size, B 2, its cache of SEQ_CELL's 4096 positions split in
+   halves along T over the same (1, 2) group (``GridRank.
+   sequence_parallel``, ``partition.use_seq``), every weight whole on
+   each rank: the one process first, alone, prefills each of two prompts
+   (1536, where rank 1 holds only masked positions at every step, and
+   3072) in float32 and bf16 with K5 (16 launches a prefill, counted, no
+   plain version), fills the cache from the prefill's k and v and runs
+   16 greedy decode steps over it whole; then each rank, teacher-forced
+   with those tokens over its half, counted (no launch) and recorded:
+   its logits within SEQ_TOL of max |logit| of the one process's (1e-4
+   float32; 3e-2 bf16, the port's bf16 logits bar: one bf16 ulp of a
+   logit near the max is already 2^-8 to 2^-7 of it), a token it picks
+   otherwise only at a near tie there (within SEQ_TOL of the best), its
+   collectives EXACTLY ``_seq_predict``'s (per layer a MAX
+   and a packed SUM all-reduce over the model group).  ``ep_prefill``,
+   ``ep_train``, ``ep_seq_decode`` and one ``ep_rank`` line a rank;
 15. **dryrun** — the dry run (``repro_torch.launch.dryrun``: the step
    traced on the meta device, nothing launched; computed during the
    build) against the card: (a)
@@ -315,7 +331,10 @@ any of them ends the run with a non-zero exit code and no result line:
    held against every rank's recorded collectives (group, kind, count,
    bytes) and ``_ep_predict`` exactly, its K5 calls a device against each
    rank's launches, and its ``peak_bytes_per_device`` against the training
-   ranks' measured peak within DRYRUN_PEAK_TOL; the part prints its
+   ranks' measured peak within DRYRUN_PEAK_TOL; and (c)'s decode step
+   under rules replicating every param and splitting only ``kv_seq``
+   over ``model``, times the steps, against every rank's collectives of
+   each run and ``_seq_predict`` exactly (no K5); the part prints its
    seconds;
 16. **report** — one ``{"kernels": [...]}`` line (K1-K6; K5 and K6 also
    at the training shapes, K5 also at minicpm3's MLA shape, the MoE
@@ -1577,6 +1596,16 @@ EP_TIME_STEPS = 3        # training steps timed without the recorder
 EP_LOGIT_TOL = 1e-4      # float32 ranks against the twin, of max |logit|
 EP_LOSS_TOL = 1e-5       # the ranks' losses against the twin's, each step
 EP_PARAM_TOL = 1e-4      # final params, of max(1, max |want|)
+# (c) a sequence-split decode: llama3.2-1b's cache split along T over the
+# model group of (b)'s ranks
+SEQ_ARCH = "llama3.2-1b"
+SEQ_CELL = {"grid": (1, 2), "batch": 2, "cache": 4096,
+            "prompts": (1536, 3072), "steps": 16}
+# of max |logit|: float32 EP_LOGIT_TOL's bar; bf16 the port's bf16 logits
+# bar (tests/test_torch_lm.py: roundings placed otherwise), since one bf16
+# ulp of a logit near max |logit| is 2^-8 to 2^-7 of it, above DECODE_TOL
+# (a float32 bar)
+SEQ_TOL = {"float32": EP_LOGIT_TOL, "bfloat16": 3e-2}
 DIST_RANKS = 4
 DIST_STEPS, DIST_CHUNK = 1500, 250
 DIST_TURN_STEPS = 100
@@ -3914,10 +3943,253 @@ def _ep_train_part(ep, dev, params_path) -> dict:
     return out
 
 
-def _ep_rank(grid, logits_path, params_path) -> dict:
+def _seq_cfg(dtype):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(SEQ_ARCH), dtype=dtype)
+
+
+def _seq_predict(cfg, cell, steps=1) -> dict:
+    """The collectives one rank of (c) issues in ``steps`` decode steps
+    (the prediction written in ``PERF.md`` §6 before the part first ran):
+    per layer a MAX all-reduce of the (B, 1, H) float32 row maxima and one
+    SUM all-reduce of the packed (B, 1, H, hd) outputs and (B, 1, H) sums,
+    float32, over the model group; nothing else (every weight whole on
+    every rank)."""
+    B, H, L = cell["batch"], cfg.n_heads, cfg.n_layers
+    per_layer = 4 * B * H + 4 * B * H * (cfg.hd + 1)
+    return {"model": {"all-reduce": [steps * 2 * L, steps * L * per_layer]}}
+
+
+@contextlib.contextmanager
+def _kv_capture():
+    """The k and v of every K5 wrapper call, in call order (one a layer
+    in a dense prefill): the prefill's rows of the cache, after rope, in
+    the compute dtype, as a decode step writes its row."""
+    from repro_torch.kernels import flash_attention as FA
+
+    calls, inner = [], FA.flash_attention
+
+    def capture(q, k, v, **kw):
+        calls.append((k, v))
+        return inner(q, k, v, **kw)
+    FA.flash_attention = capture
+    try:
+        yield calls
+    finally:
+        FA.flash_attention = inner
+
+
+def _seq_tokens(cfg, prompt, dev):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    return torch.randint(0, cfg.vocab, (SEQ_CELL["batch"], prompt),
+                         generator=gen, device=dev)
+
+
+def _seq_one_process(dev, tmp) -> dict:
+    """(c)'s one-process runs, on the card before the ranks start: for
+    each dtype and prompt, the prefill (16 K5 launches, counted, no plain
+    version) fills a cache of SEQ_CELL's length, then SEQ_CELL's greedy
+    decode steps run over it whole.  The cache, the steps' input tokens
+    and logits go to files under ``tmp`` for the ranks."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import build_model
+
+    cell = SEQ_CELL
+    out = {"runs": {}, "k5": 0}
+    params = None
+    for dtype in ("float32", "bfloat16"):
+        cfg = _seq_cfg(dtype)
+        model = build_model(cfg, dev)
+        if params is None:
+            params = model.init(SEED)
+        for prompt in cell["prompts"]:
+            tokens = _seq_tokens(cfg, prompt, dev)
+            FA.reset_launch_counts()
+            with torch.no_grad(), _kv_capture() as kv:
+                logits = model.prefill(params, {"tokens": tokens})
+            _sync(dev)
+            counts = {"launches": FA.launches["flash_attention"],
+                      "plain": FA.plain_calls["flash_attention_plain"]}
+            check(counts == {"launches": cfg.n_layers, "plain": 0}
+                  and len(kv) == cfg.n_layers,
+                  f"(c) {dtype} prefill {prompt}: K5 {counts}, "
+                  f"{len(kv)} layers captured")
+            out["k5"] += counts["launches"]
+            cache = model.init_cache(cell["batch"], cell["cache"])
+            for l, (k, v) in enumerate(kv):
+                cache["k"][l, :, :prompt] = k
+                cache["v"][l, :, :prompt] = v
+            del kv
+            tok = logits[:, -1:, :cfg.vocab].argmax(-1)
+            del logits
+            tag = f"{dtype}_{prompt}"
+            cache_path = os.path.join(tmp, f"seq_cache_{tag}.pt")
+            torch.save({k: t.cpu() for k, t in cache.items()}, cache_path)
+            steps, lgs = [], []
+            t0 = time.perf_counter()
+            for s in range(cell["steps"]):
+                steps.append(tok)
+                lg, cache = model.decode_step(params, cache,
+                                              {"tokens": tok}, prompt + s)
+                lgs.append(lg[:, :, :cfg.vocab].float())
+                tok = lg[:, :, :cfg.vocab].argmax(-1)
+            _sync(dev)
+            secs = time.perf_counter() - t0
+            check(FA.launches["flash_attention"] == cfg.n_layers,
+                  f"(c) {dtype} {prompt}: decode launched K5")
+            run = {"cache": cache_path,
+                   "tokens": os.path.join(tmp, f"seq_tokens_{tag}.pt"),
+                   "logits": os.path.join(tmp, f"seq_logits_{tag}.pt"),
+                   "decode_s": secs}
+            torch.save(torch.cat(steps, 1).cpu(), run["tokens"])
+            torch.save(torch.cat(lgs, 1).cpu(), run["logits"])
+            out["runs"][tag] = run
+            del cache, lgs
+        del model
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _seq_part(grid, runs) -> dict:
+    """A rank's part of (c): its half of each run's cache, the full
+    weights, SEQ_CELL's decode steps teacher-forced with the one-process
+    run's tokens under ``partition.use_seq``, counted and recorded; its
+    greedy tokens and logits held against the one-process run's."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import build_model
+    from repro_torch.models import partition as PT
+    from repro_torch.utils.collectives import CollectiveRecorder
+
+    t_part = time.perf_counter()
+    dev = grid.device
+    seq = grid.sequence_parallel()
+    out = {"index": seq.index, "n": seq.n, "runs": {}}
+    params = None
+    for dtype in ("float32", "bfloat16"):
+        cfg = _seq_cfg(dtype)
+        model = build_model(cfg, dev)
+        if params is None:
+            params = model.init(SEED)
+        for prompt in SEQ_CELL["prompts"]:
+            run = runs[f"{dtype}_{prompt}"]
+            whole = torch.load(run["cache"], mmap=True)
+            cache = {k: seq.shard_cache(t, 2).to(dev)
+                     for k, t in whole.items()}
+            del whole
+            tokens = torch.load(run["tokens"]).to(dev)
+            want = torch.load(run["logits"], mmap=True)
+            staged = seq.comm.staged_bytes
+            lgs = []
+            with PT.use_seq(seq), CollectiveRecorder() as rec:
+                dist.barrier(group=seq.group)
+                _reset_lm_counts()
+                t0 = time.perf_counter()
+                for s in range(SEQ_CELL["steps"]):
+                    lg, cache = model.decode_step(
+                        params, cache, {"tokens": tokens[:, s:s + 1]},
+                        prompt + s)
+                    lgs.append(lg[:, :, :cfg.vocab].float())
+                _sync(dev)
+                secs = time.perf_counter() - t0
+                counts = _lm_counts()
+            got = torch.cat(lgs, 1)
+            del lgs, cache
+            w = want.to(dev)
+            top = float(w.abs().max())
+            mine, theirs = got.argmax(-1), w.argmax(-1)
+            # a token this rank picks otherwise than the one process is
+            # a near tie there: the one process scores it within the
+            # dtype's logit tolerance of its best
+            picked = w.gather(-1, mine[..., None])[..., 0]
+            near = bool((w.max(-1).values - picked
+                         <= SEQ_TOL[dtype] * top).all())
+            collectives, ms = _ep_recorded(rec.record)
+            out["runs"][f"{dtype}_{prompt}"] = {
+                "max_abs_err": float((got - w).abs().max()),
+                "max_abs_logit": top,
+                "tokens_differing": int((mine != theirs).sum()),
+                "differing_are_near_ties": near,
+                "finite": bool(torch.isfinite(got).all()),
+                "counts": {k: v for k, v in counts.items() if v},
+                "collectives": collectives, "collective_ms": ms,
+                "staged_bytes": seq.comm.staged_bytes - staged,
+                "decode_s": secs,
+                "positions_held": [seq.index * SEQ_CELL["cache"] // seq.n,
+                                   (seq.index + 1) * SEQ_CELL["cache"]
+                                   // seq.n]}
+            del got, w, want
+        del model
+    out["seconds"] = time.perf_counter() - t_part
+    return out
+
+
+def _seq_checks(ranks, one) -> dict:
+    """(c)'s checks over the ranks that ran it: each run's logits within
+    SEQ_TOL of the one process's, its differing tokens (if any) near ties
+    there, no K5 launch and no plain version in the decode, and its
+    collectives exactly ``_seq_predict``'s."""
+    cell = SEQ_CELL
+    parts = [r for r in ranks if "c" in r]
+    check(sorted(r["c"]["index"] for r in parts)
+          == list(range(cell["grid"][1])),
+          f"(c) ranks {[r['c']['index'] for r in parts]} ran it")
+    c = {"arch": SEQ_ARCH, "grid": list(cell["grid"]),
+         "batch": cell["batch"], "cache": cell["cache"],
+         "prompts": list(cell["prompts"]), "steps": cell["steps"],
+         "one_process_seconds": one["seconds"],
+         "one_process_decode_s": {k: v["decode_s"]
+                                  for k, v in one["runs"].items()},
+         "prefill_k5_launches": one["k5"],
+         "part_seconds": {r["rank"]: r["c"]["seconds"] for r in parts},
+         "runs": {}}
+    for tag in one["runs"]:
+        dtype = tag.split("_")[0]
+        pred = _seq_predict(_seq_cfg(dtype), cell, cell["steps"])
+        row = {"predicted": pred, "ranks": {}}
+        for r in parts:
+            got = r["c"]["runs"][tag]
+            err = got["max_abs_err"] / got["max_abs_logit"]
+            row["ranks"][r["rank"]] = {
+                **{k: got[k] for k in ("tokens_differing", "collectives",
+                                       "collective_ms", "staged_bytes",
+                                       "decode_s", "positions_held")},
+                "logit_err": err}
+            check(got["finite"] and err <= SEQ_TOL[dtype],
+                  f"(c) {tag} rank {r['rank']}: logits {err:.3e} of max "
+                  "off the one process's")
+            check(got["differing_are_near_ties"],
+                  f"(c) {tag} rank {r['rank']}: {got['tokens_differing']} "
+                  "tokens differ, not at near ties")
+            check(got["counts"] == {}, f"(c) {tag} rank {r['rank']}: "
+                  f"decode launched {got['counts']}")
+            check(got["collectives"] == pred,
+                  f"(c) {tag} rank {r['rank']}: collectives "
+                  f"{got['collectives']}, predicted {pred}")
+        c["runs"][tag] = row
+    c["max_logit_err"] = {tag: max(v["logit_err"]
+                                   for v in row["ranks"].values())
+                          for tag, row in c["runs"].items()}
+    c["tokens_differing"] = sum(v["tokens_differing"]
+                                for row in c["runs"].values()
+                                for v in row["ranks"].values())
+    emit({"ep_seq_decode": c})
+    return c
+
+
+def _ep_rank(grid, logits_path, params_path, seq_runs) -> dict:
     """One rank of the EP_PREFILL grid: its part of (a); then the ranks of
     data shard 0, with their model group and no data group (a (1, M)
-    grid), run (b) while the others wait."""
+    grid), run (b) and (c) while the others wait."""
     import torch
     import torch.distributed as dist
 
@@ -3935,6 +4207,8 @@ def _ep_rank(grid, logits_path, params_path) -> dict:
         sub = EP.EPRank(data=1, model=ep.model, d=0, m=ep.m, data_group=None,
                         model_group=ep.model_group, comm=ep.comm)
         out["b"] = _ep_train_part(sub, dev, params_path)
+        torch.cuda.empty_cache()
+        out["c"] = _seq_part(grid, seq_runs)
     return out
 
 
@@ -4017,12 +4291,20 @@ def ep_phase(dev) -> dict:
         del params, model
         torch.cuda.empty_cache()
 
+        # (c) the one-process prefills and decodes over the whole cache
+        check(SEQ_CELL["grid"] == (1, M), "(c) runs on (a)'s data shard 0")
+        t0 = time.perf_counter()
+        seq_one = _seq_one_process(dev, tmp)
+        seq_one["seconds"] = time.perf_counter() - t0
+        launches["flash_attention"] = seq_one["k5"]
+
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=tmp) as store:
             ranks = mesh_lib.run_ranks(
                 mesh_lib.make_grid_mesh(D, M, store, dev.type,
                                         timeout_s=300),
-                _ep_rank, logits_path, params_path, deadline_s=500)
+                _ep_rank, logits_path, params_path, seq_one["runs"],
+                deadline_s=600)
         res["group_seconds"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4101,6 +4383,8 @@ def ep_phase(dev) -> dict:
     b["max_param_err"] = max(r["b"]["param_err"] for r in trained)
     res["b"] = b
     emit({"ep_train": b})
+
+    res["c"] = _seq_checks(ranks, seq_one)
     res["ranks"] = ranks
     res["launches"] = launches
     print(res["card"])
@@ -4198,6 +4482,20 @@ def _ep_dry_runs() -> dict:
                 out["train"] = row
             else:
                 out["prefill"][dtype] = row
+    # (c)'s decode: every param replicated, the cache split along T over
+    # the model axis
+    seq_rules = {k: None for k in SINGLE_POD_RULES if k != "batch"}
+    seq_rules["kv_seq"] = "model"
+    out["seq_rules"], out["seq"] = seq_rules, {}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        _, rec = dryrun.lower_cell(
+            SEQ_ARCH, None, cfg_override=_seq_cfg(dtype),
+            mesh=make_production_mesh(shape=SEQ_CELL["grid"]),
+            shape_override=ShapeConfig("seq", SEQ_CELL["cache"],
+                                       SEQ_CELL["batch"], "decode"),
+            partitioned=True, extra_rules=seq_rules)
+        out["seq"][dtype] = (rec, time.perf_counter() - t0)
     return out
 
 
@@ -4265,8 +4563,35 @@ def _ep_partitioned(ep, runs) -> dict:
                     "peak_gap_vs_ranks": gaps,
                     "collective_s": rec["roofline"]["collective_s"],
                     "dry_run_s": secs}
+    # (c): one decode step's record times the steps, against each rank
+    # of each run and _seq_predict
+    n = SEQ_CELL["steps"]
+    out["seq"] = {"rules": {k: v for k, v in runs["seq_rules"].items()
+                            if v is not None}}
+    train_secs = secs
+    for dtype, (rec, secs) in runs["seq"].items():
+        got = {g: {k: [c * n, b * n] for k, (c, b) in kinds.items()}
+               for g, kinds in groups(rec).items()}
+        pred = _seq_predict(_seq_cfg(dtype), SEQ_CELL, n)
+        check(got == pred, f"(e) seq {dtype}: dry run x {n} {got}, "
+              f"predicted {pred}")
+        for tag, row in ep["c"]["runs"].items():
+            if not tag.startswith(dtype):
+                continue
+            for rank, r in row["ranks"].items():
+                check(got == r["collectives"],
+                      f"(e) seq {tag}: dry run x {n} {got}, rank {rank} "
+                      f"{r['collectives']}")
+        check(rec["kernel_calls"]["flash_attention"] == 0,
+              f"(e) seq {dtype}: K5 {rec['kernel_calls']} in a decode")
+        out["seq"][dtype] = {
+            "collectives_one_step": groups(rec), "collectives_steps": got,
+            "peak_bytes_per_device": rec["peak_bytes_per_device"],
+            "collective_s": rec["roofline"]["collective_s"],
+            "dominant": rec["roofline"]["dominant"], "dry_run_s": secs}
     out["seconds"] = time.perf_counter() - t_part + sum(
-        v[1] for v in runs["prefill"].values()) + secs
+        v[1] for v in runs["prefill"].values()) + train_secs + sum(
+        v[1] for v in runs["seq"].values())
     emit({"dryrun_partitioned_ep": out})
     return out
 
@@ -4606,7 +4931,8 @@ def main(argv=None) -> int:
                     [r["b"]["counts"][name] for r in ep["ranks"]
                      if "b" in r],
                 "lm_train_grid": list(EP_TRAIN["grid"]),
-                "lm_train_steps": EP_TRAIN["steps"]}
+                "lm_train_steps": EP_TRAIN["steps"],
+                "seq_decode_prefill_launches": ep["c"]["prefill_k5_launches"]}
             et = lm_train[ENCDEC]
             kernels[-1]["encdec_path"] = {
                 "arch": ENCDEC,

@@ -15,6 +15,11 @@ headers say what bounds them and how they are tiled.  This module holds
   plain PyTorch, the general function of the models' ``chunked_attention``
   (a query offset, valid cache lengths); it never holds more than one
   block's (block_q, T) scores;
+* :func:`attention_partial` / :func:`softmax_partial` — the split
+  softmax's partial (o, m, l) over one block of a cache split along T,
+  at the block's global offset (``models/partition.py::
+  split_kv_attention`` combines the blocks; plain PyTorch, as
+  :func:`attention_blocks`: the reference's decode is plain jnp);
 * :func:`flash_attention_plain` — the plain version of K5:
   :func:`attention_blocks` at query offset 0 and no cache lengths;
 * :func:`flash_attention` — the wrapper: a CPU tensor goes to the plain
@@ -161,6 +166,50 @@ def attention_blocks(q, k, v, *, causal=True, q_offset=0, kv_len=None,
     if not outs:
         return q.new_empty((B, 0, H, v.shape[-1]))
     return torch.cat(outs, dim=1).reshape(B, S, H, v.shape[-1]).to(q.dtype)
+
+
+def softmax_partial(s, *, t0=0, kv_len=None):
+    """The split softmax's partial over one block of keys: ``s`` (B, ...,
+    Tb) float32 scores of keys at global positions ``t0 + t``, masked to
+    ``NEG_INF`` at or past ``kv_len`` (B,) where given; returns (p, m, l):
+    m the block's row max (``NEG_INF`` on a block with no key, finite),
+    p = exp(s - m) and l its row sum.  On a block that holds no valid
+    position every score is ``NEG_INF``: m is too, and the combine's
+    weight exp(m - M) is exactly 0 wherever another block holds one."""
+    if kv_len is not None:
+        t_idx = t0 + torch.arange(s.shape[-1], device=s.device)
+        valid = t_idx[None, :] < kv_len[:, None]               # (B, Tb)
+        s = s.masked_fill(~valid.reshape((s.shape[0],) + (1,) * (s.dim() - 2)
+                                         + (s.shape[-1],)), NEG_INF)
+    if s.shape[-1] == 0:
+        m = s.new_full(s.shape[:-1], NEG_INF)
+    else:
+        m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    return p, m, p.sum(dim=-1)
+
+
+def attention_partial(q, k, v, *, t0=0, kv_len=None, scale=None):
+    """The split softmax's partial of q (B, S, H, dh) over one block of keys
+    k (B, Tb, Hk, dh), v (B, Tb, Hk, dv) at global positions ``t0 + t``
+    (no causal mask; ``kv_len`` (B,) the valid cache lengths, None: all
+    valid): float32 (o, m, l), o (B, S, H, dv) the unnormalised sum of
+    exp(s - m) v, m and l (B, S, H) the row max and sum
+    (:func:`softmax_partial`).  The blocks combine to :func:`attention_blocks`'
+    softmax (``models/partition.py::split_kv_attention``): M = max m, out
+    = sum(o e^(m - M)) / sum(l e^(m - M))."""
+    B, S, H, dh = q.shape
+    Hk = k.shape[2]
+    G = H // Hk
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
+    qg = q.float().reshape(B, S, Hk, G, dh)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.float()) * scale
+    p, m, l = softmax_partial(s, t0=t0, kv_len=kv_len)
+    o = torch.einsum("bkgqt,btkd->bqkgd", p, v.float())
+    dv = v.shape[-1]
+    # (B, Hk, G, S) -> (B, S, H): head h = kv head h // G, group h % G
+    return (o.reshape(B, S, H, dv), m.permute(0, 3, 1, 2).reshape(B, S, H),
+            l.permute(0, 3, 1, 2).reshape(B, S, H))
 
 
 def flash_attention_plain(q, k, v, *, causal=True, block_q=512):

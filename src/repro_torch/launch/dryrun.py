@@ -45,8 +45,9 @@ the counterpart of the reference reading its SPMD-partitioned HLO.  The
 record then also holds ``collectives`` (``collective_bytes`` of the
 rank's record), ``collectives_by_group``, ``top_collectives``,
 ``roofline.collective_s`` (the total over ``LINK_BW``; it takes part in
-``dominant`` but in a decode cell, whose gathered scores make it no
-prediction), ``peak_bytes_per_device`` (the rank's live local
+``dominant``; a decode's attention over its sequence-split cache is a
+split softmax, ``partition.split_kv_attention``, so its collectives do
+not grow with the cache), ``peak_bytes_per_device`` (the rank's live local
 storages, arguments included; ``peak_bytes`` is the same), the rank's
 own ``flops_per_device`` / ``bytes_per_device`` (n_devices times them
 in ``flops`` / ``bytes``), ``kernel_calls`` a device, ``hlo_ops`` (the
@@ -159,13 +160,6 @@ PARTITIONED_NOTES = {
                        "ranks' own program on its local shards, its "
                        "collectives those of models/expert_parallel.py "
                        "over the grid's data and model groups",
-}
-# a decode cell's further note: its collective term is not a prediction
-DECODE_NOTE = {
-    "decode": "collective_s is kept out of roofline.dominant: the "
-              "sequence-split cache's attention scores are gathered whole "
-              "for the softmax (no split softmax is written), so the "
-              "collective bytes are many times the reference's",
 }
 
 
@@ -554,8 +548,7 @@ def _partitioned(rec, model, mesh, rules, args, step, out_specs):
     rec["top_collectives"] = COL.top_collectives(record)
     rec["hlo_ops"] = COL.op_histogram(tr.ops, top=15)
     rec["replicated_ops"] = dict(sorted(fallback.fallbacks.items()))
-    rec["notes"] = {**PARTITIONED_NOTES,
-                    **(DECODE_NOTE if rec["kind"] == "decode" else {})}
+    rec["notes"] = PARTITIONED_NOTES
     return out
 
 
@@ -564,12 +557,10 @@ def _finalize_roofline(rec: dict, arch: str, shape: ShapeConfig) -> None:
         "compute_s": rec["flops_per_device"] / PEAK_FLOPS_BF16,
         "memory_s": rec["bytes_per_device"] / HBM_BW,
     }
-    terms = dict(rec["roofline"])
     if "collectives" in rec:
         rec["roofline"]["collective_s"] = \
             rec["collectives"]["total_bytes"] / LINK_BW
-        if shape.kind != "decode":   # DECODE_NOTE
-            terms["collective_s"] = rec["roofline"]["collective_s"]
+    terms = dict(rec["roofline"])
     rec["roofline"]["dominant"] = max(terms, key=terms.get)
     # as the reference: the published config's counts, whatever
     # cfg_override the cell ran with

@@ -264,6 +264,17 @@ class GridRank:
                       data_group=self.data_group,
                       model_group=self.model_group, comm=Comm(self.device))
 
+    def sequence_parallel(self):
+        """This rank's ``models.partition.SeqRank``: slice m of a cache
+        split along T over its model group, with a ``core.halo.Comm`` on
+        its device (activate it with ``partition.use_seq``)."""
+        from repro_torch.core.halo import Comm
+        from repro_torch.models.partition import SeqRank
+
+        _, m = self.mesh.coords(self.rank)
+        return SeqRank(n=self.mesh.model, index=m, group=self.model_group,
+                       comm=Comm(self.device))
+
 
 def make_grid_mesh(data: int, model: int, store_dir: str, device=None,
                    timeout_s: float = TIMEOUT_S) -> GridMesh:

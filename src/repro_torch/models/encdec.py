@@ -20,7 +20,10 @@ cross-attention's non-causal S x F; both stacks run under per-layer remat
 with ``cfg.remat``.  A decode step attends over its self cache in plain
 torch (``kv_len``) and over the cached memory's keys and values with a
 full non-causal call of one query (K5 on a card, ``n_dec_layers`` a
-step).  The cross cache is filled once from the encoded frames
+step; over a cross cache split along T, as the decode rules' ``kv_seq``
+lays it out in the partitioned dry run, the split softmax in plain torch
+on each shard instead, ``partition.split_kv_attention``, so no K5 call is
+made there).  The cross cache is filled once from the encoded frames
 (:meth:`EncDecModel.fill_cross_cache`), as the reference's ``serve`` and
 tests fill theirs.
 
@@ -31,14 +34,17 @@ tensors).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.nets import map_tree
 from repro_torch.device import resolve_device
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.models import layers as L
 from repro_torch.models.causal_lm import CausalLM, _dtype
-from repro_torch.models.partition import constrain
+from repro_torch.models.partition import constrain, split_kv_attention
 from repro_torch.models.sharding import add_layer_axis, specs_from_logical
 
 
@@ -200,6 +206,9 @@ class EncDecModel(CausalLM):
         dtype = x.dtype
         H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
+        cross = functools.partial(L.chunked_attention, causal=False,
+                                  block_q=1, plain=plain)
+
         def dec_fn(lp, h, lc):
             a = _ln(h, lp["self_norm"], cfg.norm_eps)
             sc = None if lc is None else {"k": lc["self_k"], "v": lc["self_v"]}
@@ -217,10 +226,12 @@ class EncDecModel(CausalLM):
                                           plain=plain)
                 nc = None
             else:
-                out = L.chunked_attention(q, lc["cross_k"].to(dtype),
-                                          lc["cross_v"].to(dtype),
-                                          causal=False, block_q=1,
-                                          plain=plain)
+                # K5 over the cached frames; a cache split along T takes
+                # the split softmax (plain torch on each shard)
+                out = split_kv_attention(
+                    q, (lc["cross_k"].to(dtype), lc["cross_v"].to(dtype)),
+                    None, plain=cross, partial=FA.attention_partial,
+                    dtype=dtype)
                 nc = {"self_k": nsc["k"], "self_v": nsc["v"],
                       "cross_k": lc["cross_k"], "cross_v": lc["cross_v"]}
             B, S = a.shape[:2]

@@ -20,11 +20,12 @@ conventions:
   tensors it launches K5, on CPU tensors the wrapper takes its plain
   version.  A call with ``kv_len`` (self-attention decode against a cache)
   runs the plain blocked attention
-  (``kernels.flash_attention.attention_blocks``).  The choice follows the
-  arguments and the tensors' device, never a failure.  Where grad is
-  enabled and q, k or v needs it, a full call goes through the kernel's
-  training entry (``flash_attention_train``: K5 forward, the plain
-  version's VJP by recompute in the backward).
+  (``kernels.flash_attention.attention_blocks``); against a cache split
+  along T, the split softmax (:func:`decode_attention`).  The choice
+  follows the arguments and the tensors' device, never a failure.  Where
+  grad is enabled and q, k or v needs it, a full call goes through the
+  kernel's training entry (``flash_attention_train``: K5 forward, the
+  plain version's VJP by recompute in the backward).
 * Loss: :func:`fused_head_cross_entropy` chunks the head product and the
   cross-entropy over the sequence, each chunk a ``torch.autograd.Function``
   that saves only its inputs and recomputes its logits in the backward
@@ -52,8 +53,8 @@ from repro_torch.core.nets import map_tree, map_trees, tree_leaves
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.models.partition import (constrain, fsdp_gathered,
                                           is_dtensor, on_shards,
-                                          policy_active, ungathered,
-                                          unsharded, write_at)
+                                          policy_active, split_kv_attention,
+                                          ungathered, unsharded, write_at)
 
 # ------------------------------------------------------------------------- init
 
@@ -185,8 +186,17 @@ def needs_grad(*ts) -> bool:
 
 
 def decode_attention(q, k, v, pos):
-    """Single-position attention against a full cache. q: (B,1,H,dh), pos: (B,)"""
-    return chunked_attention(q, k, v, causal=False, kv_len=pos + 1, block_q=1)
+    """Single-position attention against a full cache. q: (B,1,H,dh), pos: (B,)
+
+    A cache split along T (a DTensor's, or a rank's slice under
+    ``partition.use_seq``) takes the split softmax
+    (``partition.split_kv_attention``); else the blocked attention."""
+    kv_len = pos + 1
+    return split_kv_attention(
+        q, (k, v), kv_len,
+        plain=lambda q, k, v: chunked_attention(q, k, v, causal=False,
+                                                kv_len=kv_len, block_q=1),
+        partial=FA.attention_partial, dtype=q.dtype)
 
 
 def init_gqa(gen, d_model, n_heads, n_kv, head_dim, bias=False, std=0.02):

@@ -13,7 +13,9 @@ kernel serves it: the cache holds only the compressed latents ``ckv`` (B,
 T, kv_lora) and the shared rope key ``kr`` (B, T, rope_dim); ``wuk`` is
 absorbed into the query and ``wuv`` into the output, so decode attends over
 an effective head of ``kv_lora + rope_dim`` with float32 scores, softmax and
-context.
+context.  Over a latent cache split along T (the decode rules' ``kv_seq``)
+the softmax is split (``partition.split_kv_attention``): each shard's
+partial context is kv_lora wide, combined before the ``wuv`` product.
 
 The reference's ``logical`` / ``cache_logical`` sharding trees are ported
 (``models/sharding.py``), and so are its ``constrain`` hints
@@ -26,9 +28,11 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.models import layers as L
 from repro_torch.models.causal_lm import BlockDef, register_block
-from repro_torch.models.partition import constrain, write_at
+from repro_torch.models.partition import (constrain, split_kv_attention,
+                                          write_at)
 from repro_torch.models.sharding import add_layer_axis
 
 
@@ -103,13 +107,31 @@ def _absorbed_decode(p, x, cfg, dtype, positions, cache, pos):
     wuv = p["wuv"].to(dtype).reshape(cfg.kv_lora, H, cfg.v_head_dim)
     q_c = torch.einsum("bqhn,chn->bqhc", q_nope, wuk)         # absorb W_uk
     scale = 1.0 / math.sqrt(cfg.nope_dim + cfg.rope_dim)
-    ckv32 = ckv.float()
-    s = (torch.einsum("bqhc,btc->bhqt", q_c.float(), ckv32)
-         + torch.einsum("bqhr,btr->bhqt", q_rope.float(), kr.float())) * scale
-    t_idx = torch.arange(ckv.shape[1], device=x.device)
-    s = s.masked_fill((t_idx > pos)[None, None, None, :], -1e30)
-    prob = torch.softmax(s, dim=-1)
-    ctx_c = torch.einsum("bhqt,btc->bqhc", prob, ckv32)
+
+    def scores(q_c, q_rope, ckv32, kr):
+        return (torch.einsum("bqhc,btc->bhqt", q_c.float(), ckv32)
+                + torch.einsum("bqhr,btr->bhqt", q_rope.float(), kr.float())
+                ) * scale
+
+    def plain(q_c, q_rope, ckv, kr):
+        ckv32 = ckv.float()
+        s = scores(q_c, q_rope, ckv32, kr)
+        t_idx = torch.arange(ckv.shape[1], device=x.device)
+        s = s.masked_fill((t_idx > pos)[None, None, None, :], -1e30)
+        prob = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqt,btc->bqhc", prob, ckv32)
+
+    def partial(q_c, q_rope, ckv, kr, *, t0, kv_len):
+        # the split softmax's block: o in the latent space (kv_lora wide)
+        ckv32 = ckv.float()
+        prob, m, l = FA.softmax_partial(scores(q_c, q_rope, ckv32, kr),
+                                        t0=t0, kv_len=kv_len)
+        return (torch.einsum("bhqt,btc->bqhc", prob, ckv32),
+                m.transpose(1, 2), l.transpose(1, 2))
+
+    kv_len = torch.full((B,), pos + 1, dtype=torch.int64, device=x.device)
+    ctx_c = split_kv_attention((q_c, q_rope), (ckv, kr), kv_len, plain=plain,
+                               partial=partial)
     out = torch.einsum("bqhc,chv->bqhv", ctx_c, wuv.float()).to(dtype)
     return out.reshape(B, S, H * cfg.v_head_dim) @ p["wo"].to(dtype), \
         new_cache

@@ -32,6 +32,12 @@ reference's GSPMD partitions a jitted one:
 * :func:`unsharded` — a tensor whole along one dim (the cross-entropy's
   vocab); :func:`expert_einsum` — the experts' products on each device's
   (group, expert) shards;
+* :func:`split_kv_attention` — a decode's attention over a cache split
+  along T as a split softmax: each shard's partial (o, m, l) at its
+  offset, one MAX and one packed SUM all-reduce over the split's mesh
+  dims (functional collectives on DTensors; on real ranks, whose caches
+  are plain slices, through the ``Comm`` of the :class:`SeqRank` made
+  current by :func:`use_seq`, which :func:`write_at` follows too);
 * :class:`ReplicateUnsharded` — the torch-function policy the step runs
   under: an op on replicated DTensors runs on their local tensors (what
   every device runs alike), a product's partial sums are reduced where
@@ -43,8 +49,9 @@ reference's GSPMD partitions a jitted one:
   for a missing sharding: any other propagates.
 
 The model code calls :func:`constrain`, :func:`on_shards`,
-:func:`write_at` and :func:`expert_einsum` on every path; on plain
-tensors each is the plain operation.
+:func:`write_at`, :func:`split_kv_attention` and :func:`expert_einsum` on
+every path; on plain tensors with no :func:`use_seq` each is the plain
+operation.
 """
 from __future__ import annotations
 
@@ -52,11 +59,15 @@ import os
 import threading
 from collections import Counter
 from contextlib import contextmanager
+from dataclasses import dataclass
 
 import torch
 from torch.overrides import TorchFunctionMode
 
 from repro_torch.models.sharding import current_rules, spec
+
+_state = threading.local()
+
 
 def _dt():
     from torch.distributed import tensor
@@ -203,7 +214,15 @@ def write_at(cache, value, pos: int, dim: int = 1):
     """``cache`` with ``value`` (size 1 along ``dim``) written at index
     ``pos`` of ``dim``: a clone and an indexed write; on a DTensor split
     along ``dim`` a select over the position, elementwise on every
-    shard."""
+    shard; on a real rank of a sequence-split cache (:func:`use_seq`) the
+    write where the rank's slice holds ``pos``, else the slice as it is."""
+    seq = current_seq()
+    if seq is not None and not is_dtensor(cache):
+        n = cache.shape[dim]
+        local = pos - seq.index * n
+        if not 0 <= local < n:
+            return cache
+        pos = local
     if not is_dtensor(cache) or not any(
             p.is_shard(dim) for p, n in zip(cache.placements,
                                             cache.device_mesh.shape)
@@ -217,6 +236,177 @@ def write_at(cache, value, pos: int, dim: int = 1):
     shape[dim] = n
     hit = (torch.arange(n, device=cache.device) == pos).reshape(shape)
     return torch.where(hit, value.to(cache.dtype), cache)
+
+
+# ------------------------------------------------- the sequence-split cache
+
+@dataclass
+class SeqRank:
+    """This process is slice ``index`` of ``n`` real ranks that hold a
+    cache split along T in equal slices (rank i: positions [i T_loc, (i +
+    1) T_loc)), its ``group`` (the ranks of the split) and its
+    ``core.halo.Comm`` (``gloo``; staged through pinned host buffers on a
+    card).  A rank's body gets its own from ``GridRank.sequence_parallel``
+    (the grid's model group)."""
+
+    n: int
+    index: int
+    group: object
+    comm: object
+
+    def shard_cache(self, tree, dim: int):
+        """This rank's slice along ``dim`` of every leaf of a cache tree
+        (contiguous copies); raises where the length does not split
+        evenly."""
+        if isinstance(tree, dict):
+            return {k: self.shard_cache(v, dim) for k, v in tree.items()}
+        T = tree.shape[dim]
+        if T % self.n:
+            raise ValueError(f"a cache of {T} positions over {self.n} ranks")
+        n = T // self.n
+        return tree.narrow(dim, self.index * n, n).contiguous()
+
+
+@contextmanager
+def use_seq(seq: SeqRank | None):
+    """Makes ``seq`` current: every cache the decode hands
+    :func:`split_kv_attention` and :func:`write_at` is then this rank's
+    slice along T."""
+    prev = getattr(_state, "seq", None)
+    _state.seq = seq
+    try:
+        yield seq
+    finally:
+        _state.seq = prev
+
+
+def current_seq() -> SeqRank | None:
+    return getattr(_state, "seq", None)
+
+
+def _t_split(kv) -> list:
+    """The mesh dims (of more than one device) that split the caches
+    ``kv`` along T (dim 1); raises unless every cache has the same
+    placements and each is a batch (dim 0) or T split or replicated."""
+    first = kv[0].placements
+    for t in kv:
+        if list(t.placements) != list(first):
+            raise ValueError(f"caches laid out unlike: {t.placements}, "
+                             f"{first}")
+    mesh = kv[0].device_mesh
+    dims = []
+    for i, p in enumerate(first):
+        if mesh.size(i) == 1 or p.is_replicate() or p.is_shard(0):
+            continue
+        if p.is_shard(1):
+            dims.append(i)
+            continue
+        raise ValueError(
+            f"split_kv_attention takes a cache split along T (dim 1) or the "
+            f"batch (dim 0), got {p} on mesh dim {mesh.mesh_dim_names[i]}")
+    return dims
+
+
+def _offset(x, dim: int, placements) -> int:
+    """Where this rank's shard of ``x`` laid out by ``placements`` starts
+    along ``dim`` (DTensor's own chunking: ceil(size / n) a shard)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    return compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, placements)[1][dim]
+
+
+def _combine(o, m, l, all_reduce):
+    """The blocks' partials (o, m, l) combined: M = max m over the blocks,
+    then one packed sum of o e^(m - M) and l e^(m - M); ``all_reduce(t,
+    op)`` reduces over the blocks (``"max"`` / ``"sum"``).  A block with
+    no valid position has m = NEG_INF and weight 0; l > 0 wherever one
+    block has a key, so the quotient is finite.  Float32."""
+    M = all_reduce(m, "max")
+    a = torch.exp(m - M)
+    packed = all_reduce(torch.cat([(o * a[..., None]).reshape(-1),
+                                   (l * a).reshape(-1)]), "sum")
+    n = o.numel()
+    return packed[:n].reshape(o.shape) \
+        / packed[n:].reshape(l.shape)[..., None]
+
+
+def _funcol_reduce(mesh, dims):
+    """``all_reduce(t, op)`` over the mesh dims ``dims`` in turn, as the
+    functional collectives DTensor issues (the collective recorder logs
+    each, on the mesh dim's group)."""
+    ops = torch.ops._c10d_functional
+
+    def all_reduce(t, op):
+        for i in dims:
+            t = ops.wait_tensor(ops.all_reduce(t.contiguous(), op,
+                                               mesh.get_group(i).group_name))
+        return t
+    return all_reduce
+
+
+def split_kv_attention(q, kv, kv_len, *, plain, partial, dtype=None):
+    """Attention of the queries ``q`` (one tensor or a tuple, each (B, S,
+    H, ...)) over the caches ``kv`` (a tuple, each (B, T, ...)) with
+    ``kv_len`` (B,) valid lengths (None: all T), as a split softmax
+    where the caches are split along T.  ``plain(*q, *kv)`` is the
+    unsplit call; ``partial(*q, *kv, t0=, kv_len=)`` a block's float32
+    (o, m, l) at global offset t0 (o (B, S, H, dv), m and l (B, S, H);
+    ``kernels.flash_attention.attention_partial``).  Returns ``plain``'s
+    result where nothing is split, else the float32 combine cast to
+    ``dtype`` (None: kept float32):
+
+    * plain tensors, no :func:`use_seq`: ``plain`` (the one-device path,
+      K5's launches, every parity test: today's call);
+    * plain tensors under :func:`use_seq`: this rank's slice at offset
+      ``index * T_loc``, its ``m`` all-reduced with MAX over the rank's
+      group, then o and l (packed, one buffer) with SUM, through its
+      ``Comm``;
+    * DTensors whose caches are split along T over one or more mesh
+      dims: q is gathered over those dims (its batch split kept where
+      the caches share it), each device's partial runs on its local
+      tensors at its offset (DTensor's ceil split), and the max and the
+      packed sum are functional all-reduces over exactly those dims; the
+      result has q's batch and head placements back (a local slice).  A
+      DTensor cache not split along T takes ``plain``; one split
+      otherwise than along T or the batch raises (no quiet gather).
+    """
+    qs = q if isinstance(q, tuple) else (q,)
+    if not any(is_dtensor(t) for t in qs + tuple(kv)):
+        seq = current_seq()
+        if seq is None:
+            return plain(*qs, *kv)
+        o, m, l = partial(*qs, *kv, t0=seq.index * kv[0].shape[1],
+                          kv_len=kv_len)
+        import torch.distributed as dist
+        ops = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}
+        out = _combine(o, m, l, lambda t, op: seq.comm.all_reduce(
+            t, op=ops[op], group=seq.group))
+        return out if dtype is None else out.to(dtype)
+    tdims = _t_split(kv)
+    if not tdims:
+        return plain(*qs, *kv)
+    dt = _dt()
+    mesh = kv[0].device_mesh
+    want = [dt.Shard(0) if p.is_shard(0) and mesh.size(i) > 1
+            else dt.Replicate() for i, p in enumerate(kv[0].placements)]
+    q_loc = tuple(t.redistribute(mesh, want).to_local() for t in qs)
+    kv_loc = tuple(t.to_local() for t in kv)
+    t0 = _offset(kv[0], 1, kv[0].placements)
+    if kv_len is not None:   # (B,), plain: this device's rows of it
+        b0 = _offset(qs[0], 0, want)
+        kv_len = kv_len[b0:b0 + q_loc[0].shape[0]]
+    o, m, l = partial(*q_loc, *kv_loc, t0=t0, kv_len=kv_len)
+    out = _combine(o, m, l, _funcol_reduce(mesh, tdims))
+    if dtype is not None:
+        out = out.to(dtype)
+    shape = torch.Size(tuple(qs[0].shape[:3]) + (out.shape[-1],))
+    out = dt.DTensor.from_local(out, mesh, want, run_check=False,
+                                shape=shape,
+                                stride=_contiguous_stride(shape))
+    back = _plain_heads(qs[0], (0, 2))
+    return out if back == want else out.redistribute(mesh, back)
 
 
 # ------------------------------------------------------------ kernel shards

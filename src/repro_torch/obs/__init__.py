@@ -16,6 +16,8 @@ Entry points:
 * :class:`Tracer` / :class:`Span` — span-based causal tracing with
   trace_id propagation, exported to Chrome-trace/Perfetto timelines via
   :mod:`repro_torch.obs.trace_export`;
+* :mod:`repro_torch.obs.trajectory` — append-only bench history + the
+  drift-robust perf regression gate;
 * :class:`Obs` — the bundle the subsystems actually accept: a registry plus
   an optional event log and an optional tracer sharing its clock.
 """
@@ -24,7 +26,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass
 
-from repro_torch.obs import profiling
+from repro_torch.obs import profiling, trajectory
 from repro_torch.obs.events import (EVENT_KINDS, EventLog, ObsSchemaError,
                                     SCHEMA_VERSION, check_fields, read_events,
                                     validate_events)
@@ -92,5 +94,5 @@ __all__ = [
     "to_chrome", "training_timeline", "validate_chrome_trace",
     "Obs", "make_obs",
     "profiling", "SCOPES", "scope", "CompileWatcher", "compile_counts",
-    "comp_comm_split", "halo_traffic",
+    "comp_comm_split", "halo_traffic", "trajectory",
 ]

@@ -33,7 +33,7 @@ from repro.configs.base import ShapeConfig as JShapeConfig
 from repro.models import batch_struct as j_batch_struct
 from repro.models import build_model as j_build
 from repro.optim import adam as j_adam
-from repro_torch.configs import ARCHS
+from repro_torch.configs import ARCHS, SHAPES
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import wkv6 as WK
@@ -437,21 +437,36 @@ def test_train_step_leaves_no_tensor_in_reference_cycles(arch):
 
 # ------------------------------------------------ the partitioned dry run
 
-@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "deepseek-moe-16b"])
+BAND_CELLS = [(a, s) for a in ("llama3.2-1b", "deepseek-moe-16b")
+              for s in ("train_4k", "prefill_32k")] + \
+    [(a, "decode_32k") for a in SLICE_ARCHS]
+
+
+@pytest.mark.parametrize("arch,shape", BAND_CELLS,
+                         ids=[f"{a}-{s}" for a, s in BAND_CELLS])
 def test_partitioned_collective_bytes_near_the_reference(ref_records, arch,
                                                          shape):
     """Rank 0's collective operand bytes against the reference's
     partitioned HLO on the same (2, 4) mesh, within [0.5x, 2x]: DTensor
     issues one collective a redistribution in bf16 where XLA on the CPU
     combines them and all-reduces the bf16 products' sums in float32.
-    The counts are not compared.  All 21 cells stand in ``PERF.md`` §7."""
-    _, rec = dryrun.lower_cell(arch, shape,
-                               cfg_override=ARCHS[arch].reduced(), mesh=MESH,
+    The counts are not compared.  A decode attends over its
+    sequence-split cache by a split softmax: no collective of it is as
+    large as one layer's float32 scores on a device (a gathered score
+    tensor, or the cross cache moved to the heads' split).  All 21 cells
+    stand in ``PERF.md`` §7."""
+    cfg = ARCHS[arch].reduced()
+    _, rec = dryrun.lower_cell(arch, shape, cfg_override=cfg, mesh=MESH,
                                partitioned=True)
     got = rec["collectives"]["total_bytes"]
     want = ref_records(arch, shape)["collectives"]["total_bytes"]
     assert 0.5 * want <= got <= 2 * want, (got, want)
+    if shape == "decode_32k":
+        sh = SHAPES[shape]
+        scores = sh.global_batch // 2 * cfg.n_heads * sh.seq_len // 4 * 4
+        assert max(c["bytes"] for c in rec["top_collectives"]) < scores
+        assert rec["roofline"]["dominant"] in ("compute_s", "memory_s",
+                                               "collective_s")
     assert set(rec) >= KEYS | {"collectives", "collectives_by_group",
                                "top_collectives", "peak_bytes_per_device",
                                "hlo_ops"}

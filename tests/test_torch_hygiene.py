@@ -61,7 +61,7 @@ def test_scan_sees_the_whole_port():
                  "launch/navier_stokes_cavity.py", "models/sharding.py",
                  "launch/dryrun.py", "utils/__init__.py",
                  "utils/collectives.py", "models/expert_parallel.py",
-                 "models/partition.py"):
+                 "models/partition.py", "obs/trajectory.py"):
         assert must in names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core") and not _forbidden("jaxtyping_x")
@@ -101,3 +101,20 @@ def test_sharding_rules_are_a_torch_free_copy():
         assert getattr(port, name) == getattr(ref, name), name
     for flags in itertools.product((False, True), repeat=3):
         assert port.rules_for(*flags) == ref.rules_for(*flags), flags
+
+
+def test_trajectory_is_a_torch_free_copy():
+    """``obs/trajectory.py`` imports neither torch nor JAX nor the JAX
+    package (only the port's own ``obs.events``), names no default history
+    file, and its tables are the reference's."""
+    from repro.obs import trajectory as ref
+    from repro_torch.obs import trajectory as port
+
+    path = PORT / "obs" / "trajectory.py"
+    assert [m for m in _imports(path)
+            if m.split(".")[0] in ("torch", "jax", "repro")] == []
+    assert "BENCH_history" not in path.read_text()
+    for name in ("RECORD_FIELDS", "ROW_FIELDS", "LOWER_BETTER",
+                 "HIGHER_BETTER", "DEFAULT_THRESHOLD", "DEFAULT_MIN_RUNS",
+                 "DEFAULT_WINDOW"):
+        assert getattr(port, name) == getattr(ref, name), name
