@@ -19,11 +19,13 @@ any of them ends the run with a non-zero exit code and no result line:
 
 1. **build** — compile every CUDA source under ``src/repro_torch/csrc/``
    (one ``nvcc`` per source, all started together) and print the seconds,
-   the registers and spill bytes of every K1-K4 instantiation (none may
-   spill), and per kernel the count of
+   the registers and spill bytes of every K1-K4 instantiation and of the
+   bf16 K5 kernel's six (its instances (q/k, v) = (64, 64), (96, 64) and
+   (128, 128), each by TMA and by element loads; none may spill), and per
+   kernel the count of
    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in the built
    library's SASS (``cuobjdump -sass``): the bf16 K5 kernel must hold
-   ``HGMMA``, and ``UTMALDG`` in its TMA instantiations.  Meanwhile a
+   ``HGMMA`` in every instantiation, and ``UTMALDG`` in its TMA ones.  Meanwhile a
    thread runs phase 15's dry runs (CPU only, nothing launched; they
    predict runs made later and are held to them there);
 2. **kernels** — hold each forward kernel (K1/K2) against its plain PyTorch
@@ -136,8 +138,10 @@ any of them ends the run with a non-zero exit code and no result line:
    (B, S, H, dh) layout and as (B, H, S, dh) storage, every case counted on
    the device kernel of its dtype; K5 at minicpm3-4b's MLA shape (H = Hk =
    40, a 96-wide q/k head over a 64-wide v head, causal, S = T in {1, 37,
-   130, 1024}, (B, S, H, dh) layout; bf16 by TMA, v zero-padded inside the
-   wrapper), under the same tolerances and counts; K5 at the MoE configs'
+   130, 1024, 4096}, (B, S, H, dh) layout; bf16 by TMA on the (96, 64)
+   instance, v read at its own width; float32 with v zero-padded inside
+   the wrapper), under the same tolerances and counts, every bf16 case
+   also counted on the instance it must run; K5 at the MoE configs'
    prefill shapes (B 2, S = T = 1024: deepseek-moe-16b's H = Hk = 16 and
    phi3.5-moe's 32/8, dh 128), both dtypes; K5 at llava-next-mistral-7b's
    prefill shape (B 1, S = T = 4096: 2304 patches and 1792 tokens; 32/8
@@ -160,7 +164,8 @@ any of them ends the run with a non-zero exit code and no result line:
    per-layer prefill shape (B = 1, S = T = 4096, H = Hk = 40, dh 96 over
    dv 64, bf16, causal) beside its bound by its real work (2 (96 + 64)
    FLOP per visible pair and head), its plain version and SDPA (on the
-   unpadded v where SDPA takes it, else on v padded to 96); K5 at
+   unpadded v where SDPA takes it, else on v padded to 96), and the
+   instance that ran; K5 at
    deepseek-moe-16b's (H = Hk = 16) and phi3.5-moe's (32/8) per-layer
    prefill shapes (B 1, S = T = 4096, dh 128, bf16, causal) beside the
    same three (llava-next-mistral-7b's shape is phi3.5-moe's); K5 at
@@ -351,8 +356,8 @@ matrix-product FLOPs (two per multiply-add, pruned second-order streams not
 counted; K4 does two products per stream and layer), K6 the recurrence's
 4 P^2 FLOP per step and head, over 67 TFLOP/s, the H100 SXM's float32 rate
 outside the tensor cores; K5 its 2 (dh + dv) FLOP per visible (query,
-key) pair and head (4 dh where dv = dh; MLA's padded v columns are not
-work the function needs; S T pairs where a call is not causal) over 989
+key) pair and head (4 dh where dv = dh; MLA's v counts at its 64
+columns; S T pairs where a call is not causal) over 989
 TFLOP/s, the bf16 tensor-core rate,
 since it takes and returns bf16 at the timed shapes.
 
@@ -483,6 +488,9 @@ DROP_FREE_TOL = 1e-4
 # minicpm3-4b's expanded MLA attention: H = Hk = 40 heads, a 96-wide q/k
 # head (64 nope + 32 rope) over a 64-wide v head
 MLA_HEADS = (40, 96, 64)   # (H = Hk, dh, dv)
+# the bf16 K5 kernel's instances, (q/k width) x (v width), each built by
+# TMA and by element loads (csrc/flash_attention_sm90.cu)
+SM90_INSTANCES = ("64x64", "96x64", "128x128")
 # lm_train's runs of ``launch.train lm``: llama3.2-1b at its published size
 # (B x S cut from train_4k's 256 x 4096), checkpointed every LM_CKPT_EVERY
 # steps and resumed; rwkv6-3b at full width and 12 of its 32 layers, and
@@ -583,7 +591,7 @@ def build_phase() -> None:
                       "instantiations": len(regs),
                       "registers_max": max(regs, default=None),
                       "spill_bytes_max": max(spills, default=None)})
-    train = {stem: _ptxas_report(info[stem]["log"])
+    train = {stem: _ptxas_report(info[stem]["log"], "pinn_mlp")
              for stem in ("pinn_mlp_fwd", "pinn_mlp_bwd")}
     check(all(train.values()), "no ptxas report for the K1-K4 libraries")
     for stem, rows in train.items():
@@ -597,22 +605,35 @@ def build_phase() -> None:
         for stem, rows in train.items()}})
     check(all(r[2] == 0 for rows in train.values() for r in rows),
           "a K1-K4 instantiation spills registers")
+    # the bf16 K5 kernel: each instance by TMA and by element loads
+    k5 = _ptxas_report(info["flash_attention_sm90"]["log"],
+                       "flash_fwd_sm90_kernel")
+    for kern, nreg, spill in k5:
+        print(f"ptxas flash_attention_sm90: {kern} registers {nreg} spill "
+              f"bytes {spill}")
+    emit({"ptxas_k5_sm90": {kern: {"registers": nreg, "spill_bytes": spill}
+                            for kern, nreg, spill in k5}})
+    check(len(k5) == 2 * len(SM90_INSTANCES),
+          f"bf16 K5 instantiations {[r[0] for r in k5]}")
+    check(all(r[2] == 0 for r in k5), "a bf16 K5 instantiation spills "
+          "registers")
     sass = _sass_counts(info)
     emit({"sass": sass})
     sm90 = {k: v for k, v in sass.items() if "flash_fwd_sm90_kernel" in k}
-    check(len(sm90) == 4 and all(v["HGMMA"] > 0 for v in sm90.values()),
+    check(len(sm90) == 2 * len(SM90_INSTANCES) and
+          all(v["HGMMA"] > 0 for v in sm90.values()),
           f"bf16 K5 kernel without wgmma: {sm90}")
     # the TMA instantiations (template flag true) load by TMA, the others not
     tma = lambda k: re.search(r"(true|\(bool\)1)>$", k) is not None
-    check(sum(map(tma, sm90)) == 2 and
+    check(sum(map(tma, sm90)) == len(SM90_INSTANCES) and
           all((v["UTMALDG"] > 0) == tma(k) for k, v in sm90.items()),
           f"bf16 K5 TMA instantiations without TMA loads: {sm90}")
 
 
-def _ptxas_report(log: str) -> list:
-    """(kernel, registers, spill store bytes) of every entry function in a
-    ``-Xptxas -v`` log, the kernel's name demangled without its argument
-    list."""
+def _ptxas_report(log: str, match: str) -> list:
+    """(kernel, registers, spill store bytes) of every entry function
+    whose demangled name holds ``match`` in a ``-Xptxas -v`` log, the
+    kernel's name demangled without its argument list."""
     rows = []
     for ent in re.split(r"Compiling entry function '", log)[1:]:
         regs = re.search(r"Used (\d+) registers", ent)
@@ -626,7 +647,7 @@ def _ptxas_report(log: str) -> list:
                            timeout=60).stdout.splitlines()
     check(len(names) == len(rows), f"cu++filt gave {len(names)} names")
     return [(_without_args(n), r[1], r[2]) for n, r in zip(names, rows)
-            if "pinn_mlp" in n]
+            if match in n]
 
 
 def _sass_counts(info) -> dict:
@@ -1226,7 +1247,7 @@ def ab_phase(dev, other: str, m_main: int) -> None:
     for stem, bind in (("pinn_mlp_fwd", K.bind_fwd),
                        ("pinn_mlp_bwd", K.bind_bwd)):
         built = native.build([os.path.join(other, stem + ".cu")])[stem]
-        rows = _ptxas_report(built["log"])
+        rows = _ptxas_report(built["log"], "pinn_mlp")
         emit({"ab_build": {"source": os.path.join(other, stem + ".cu"),
                            "registers": [min(r[1] for r in rows),
                                          max(r[1] for r in rows)],
@@ -2423,24 +2444,31 @@ def lm_sweep(dev) -> dict:
 
     def one(q, k, v, causal, dname):
         """One K5 case: exactly one wrapper call on the device kernel of
-        its dtype (and, for bf16, the producer its strides allow), the
-        output in q's layout with v's width, within FA_TOL of the plain
-        version."""
-        before = {**FA.launches, **FA.producers}
+        its dtype (and, for bf16, the producer its strides allow and the
+        instance its widths ask for), the output with v's width in q's
+        layout (bf16 with dv < dh: dense in q's order of dimensions),
+        within FA_TOL of the plain version."""
+        before = {**FA.launches, **FA.producers, **FA.instances}
         got = FA.flash_attention(q, k, v, causal=causal)
         want = FA.flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        after = {**FA.launches, **FA.producers}
+        after = {**FA.launches, **FA.producers, **FA.instances}
         kern = ("flash_attention_sm90" if dname == "bfloat16"
                 else "flash_attention_f32")
         ran = {n for n in after if after[n] != before[n]}
         want_ran = {"flash_attention", kern}
-        dh = q.shape[-1]
-        if dname == "bfloat16":   # TMA where dh is a multiple of 8
-            want_ran.add("tma" if dh % 8 == 0 else "loads")
-        check(ran == want_ran, f"K5 {dname} dh{dh} launched {ran}")
-        check(got.shape == q.shape[:3] + v.shape[3:] and
-              got.stride() == q.stride(), "output layout")
+        dh, dv = q.shape[-1], v.shape[-1]
+        if dname == "bfloat16":   # TMA where dh and dv are multiples of 8
+            want_ran.add("tma" if dh % 8 == 0 and dv % 8 == 0 else "loads")
+            want_ran.add(_sm90_instance(dh, dv))
+        check(ran == want_ran, f"K5 {dname} dh{dh} dv{dv} launched {ran}")
+        if dname == "bfloat16" and dv < dh:
+            dense = got if q.is_contiguous() else got.transpose(1, 2)
+            layout = dense.is_contiguous()
+        else:
+            layout = got.stride() == q.stride()
+        check(got.shape == q.shape[:3] + v.shape[3:] and layout,
+              "output layout")
         err = _allclose(got, want, FA_TOL[dname])
         worst[dname] = max(worst[dname], err)
 
@@ -2456,7 +2484,7 @@ def lm_sweep(dev) -> dict:
     # minicpm3-4b's MLA attention: v narrower than q and k
     H, dh, dv = MLA_HEADS
     n_mla = 0
-    for n in (1, 37, 130, 1024):
+    for n in (1, 37, 130, 1024, 4096):
         for dname in ("float32", "bfloat16"):
             one(*_qkv(gen, 1, n, n, H, H, dh, getattr(torch, dname), False,
                       dev, dv=dv), True, dname)
@@ -2527,6 +2555,15 @@ def lm_sweep(dev) -> dict:
           "oracle": "wkv6_plain in float64",
           "float32_plain_max_abs_err": pworst})
     return {"flash_attention": max(worst.values()), "wkv6": wworst}
+
+
+def _sm90_instance(dh, dv) -> str:
+    """The bf16 K5 instance a call with head widths (dh, dv) must run
+    (``flash_attention_sm90_fwd``'s dispatch), as ``FA.instances`` names
+    it."""
+    if dh <= 64:
+        return "64x64"
+    return "96x64" if dh <= 96 and dv <= 64 else "128x128"
 
 
 def fa_bound(B, S, H, Hk, dh, nbytes_el=2, dv=None, T=None,
@@ -2620,11 +2657,15 @@ def lm_timing(dev) -> dict:
         sdpa_v, lib = f"padded to {dh} ({str(e)[:80]})", \
             lambda: _sdpa(q, k, vp)[..., :dv]
         sdpa_ref = lib()
+    before = dict(FA.instances)
     sdpa_err = float((sdpa_ref.float() - kern().float()).abs().max())
+    instance = [n for n in FA.instances if FA.instances[n] != before[n]]
+    check(instance == [_sm90_instance(dh, dv)],
+          f"MLA timing ran the instances {instance}")
     bms, by, nbytes, flops = fa_bound(B, S, H, H, dh, dv=dv)
     row = {"kernel": "flash_attention",
            "shape": f"B={B} S=T={S} H={H} Hk={H} dh={dh} dv={dv} bf16 causal"
-                    " (minicpm3-4b MLA)",
+                    " (minicpm3-4b MLA)", "instance": instance[0],
            "ms": _graph_ms(kern, 20), "plain_ms": _events_ms(plain, 3),
            "library_ms": _graph_ms(lib, 20), "sdpa_v": sdpa_v,
            "bound_ms": bms, "bound_by": by, "bytes": nbytes, "flops": flops,

@@ -10,7 +10,8 @@
 // |logit| over a full float32 prefill).
 //
 // Function (as csrc/flash_attention.cu): o[b, s, h] = softmax_t(q[b, s, h]
-// . k[b, t, h // G] * scale, masked) @ v[b, t, h // G], scale = 1/sqrt(dh);
+// . k[b, t, h // G] * scale, masked) @ v[b, t, h // G], scale = 1/sqrt(dh),
+// q and k dh wide, v and o dv wide (dv <= dh);
 // with `causal` key t is visible to query s iff t <= s (top-left); masked
 // scores are -1e30; the output is acc / max(l, 1e-30) in bf16.  Scores, m,
 // l and the accumulator are float32.  P = exp(s - m) is rounded to bf16
@@ -19,38 +20,58 @@
 // in float32) by at most 2^-8 * max |v| per element (bf16's unit
 // roundoff: it keeps 8 significant bits) before its own bf16 rounding.
 //
+// Instances (DK, DV): the q/k width and the v/o width the kernel is
+// compiled for, chosen per call from (dh, dv):
+//   (64, 64)    dh <= 64;
+//   (96, 64)    64 < dh <= 96 with dv <= 64: MLA's head (minicpm3-4b: 64
+//               nope + 32 rope columns over a v of 64);
+//   (128, 128)  every other dh <= 128 (e.g. 100, or 96 over a v wider
+//               than 64).
+// Each instance reads v at its own width dv, zero past dv, and writes o dv
+// wide: no instance takes a padded copy of v.
+//
 // Design.  Grid = (query tiles of kBQ = 128 rows, H, B), query tiles
 // heaviest first (reversed blockIdx.x); 384 threads in three warpgroups:
 //   * warpgroup 0, the producer (setmaxnreg down to 40 registers), loads Q
-//     once and then each kv tile's K and V (kBK = 128 rows at dh <= 64, 64
-//     at dh <= 128) into a ring of kStages stages, each with a full and an
+//     once and then each kv tile's K and V (kBK = 128 rows at DK <= 96, 64
+//     at DK = 128) into a ring of kStages stages, each with a full and an
 //     empty mbarrier.  Query head h reads kv head h // G through the
 //     coordinates it loads, never a copy.  Every tile lands in shared
-//     memory with the 128-byte swizzle, 64 bf16 columns per box (dh = 128
-//     takes two boxes), zero past dh and past S or T;
+//     memory with the 128-byte swizzle, 64 bf16 columns per box (Q and K
+//     take DK / 64 boxes rounded up, V DV / 64), zero past dh (dv for V)
+//     and past S or T;
 //   * warpgroups 1 and 2, the consumers (setmaxnreg up to 232), own 64
 //     query rows each (the wgmma M).  Per kv tile:
-//       S = Q K^T   wgmma m64n{kBK}k16, both operands K-major in shared
-//                   memory (q and k are dh-contiguous);
+//       S = Q K^T   wgmma m64n{kBK}k16 in DK / 16 k-steps (6 at DK = 96:
+//                   the zero columns 96-127 of the second box are never
+//                   read), both operands K-major in shared memory (q and k
+//                   are dh-contiguous);
 //       softmax     on the accumulator fragment in registers: row max and
 //                   sum over the four threads of a quad by shuffles, exp2
 //                   with scale * log2 e folded into one multiply, m and l
 //                   in float32; the -1e30 mask only on tiles that cross the
 //                   diagonal or the end of T;
-//       O += P V    P converted to bf16 in registers is wgmma's register A
-//                   operand (the S accumulator's layout is the A fragment's
-//                   layout); V is read from shared memory with the B
-//                   transpose bit (it is dh-contiguous, MN-major);
+//       O += P V    wgmma m64n{DV}k16: P converted to bf16 in registers is
+//                   wgmma's register A operand (the S accumulator's layout
+//                   is the A fragment's layout); V is read from shared
+//                   memory with the B transpose bit (it is dv-contiguous,
+//                   MN-major);
 //     then one lane of each warp releases the stage.  With `causal` the kv
 //     walk stops at the block's last visible tile, and a warpgroup skips
 //     the products of a tile wholly above its own rows.  The epilogue
-//     writes O / max(l, 1e-30) through the output strides (q's layout).
+//     writes the dv columns of O / max(l, 1e-30) through the output
+//     strides.
+// A consumer thread holds kBK / 2 score, DV / 2 output and kBK / 4 packed P
+// registers: 64, 32 and 32 at (64, 64) and (96, 64) alike, 32, 64 and 16 at
+// (128, 128).
 // Two producers, chosen per call (template flag kTMA):
-//   * TMA (cp.async.bulk.tensor, 4-D maps over (dh, rows, heads, batch))
-//     where the tensor maps can be encoded: 16-byte aligned bases and every
-//     stride a multiple of 16 bytes (dh a multiple of 8, e.g. 64 and 128).
-//     The box is 64 columns wide whatever dh is; columns past dh and rows
-//     past S or T are filled with zeros by the copy engine;
+//   * TMA (cp.async.bulk.tensor, 4-D maps over (width, rows, heads,
+//     batch), the width dh for q and k, dv for v) where the tensor maps can
+//     be encoded: 16-byte aligned bases and every stride a multiple of 16
+//     bytes (dh and dv multiples of 8, e.g. 64, 96 and 128).  The box is 64
+//     columns wide whatever the width is; columns past it and rows past S
+//     or T are filled with zeros by the copy engine, and count in the
+//     bytes the stage's barrier expects;
 //   * element loads by the producer's 128 threads into the same swizzled
 //     layout otherwise (dh = 100 has a 200-byte row stride, which TMA
 //     cannot take), each thread fencing its stores for the async proxy
@@ -59,17 +80,17 @@
 // API and is reached through cudaGetDriverEntryPoint, so the library needs
 // no -lcuda; the maps go to the kernel as __grid_constant__ parameters.
 //
-// What bounds it on this card.  4 dh FLOP per visible (query, key) pair and
-// head, about 1,600 FLOP per byte of q, k, v and o at S = 4096, so the bf16
-// tensor-core rate (989 TFLOP/s) bounds it (69.5 us for one llama3.2-1b
-// layer at S = T = 4096).  The consumers of this first design run each
+// What bounds it on this card.  2 (dh + dv) FLOP per visible (query, key)
+// pair and head, about 1,600 FLOP per byte of q, k, v and o at S = 4096, so
+// the bf16 tensor-core rate (989 TFLOP/s) bounds it (69.5 us for one
+// llama3.2-1b layer at S = T = 4096, 108.6 us for one minicpm3-4b layer).  The consumers of this first design run each
 // tile's two products and its softmax in sequence (wgmma waits before the
 // softmax), so a warpgroup's softmax overlaps only the other warpgroup's
 // products.
 //
 // C interface (bound with ctypes): flash_attention_sm90_fwd(...) launches on
-// the given stream, does not synchronise, reports the producer it chose and
-// returns cudaGetLastError().
+// the given stream, does not synchronise, reports the producer and the
+// instance it chose and returns cudaGetLastError().
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -83,15 +104,24 @@ constexpr int kThreads = 384;  // producer warpgroup + two consumers
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int DP>
+constexpr int kSmemMax = 232448;  // a block's shared memory on sm_90
+
+template <int DK, int DV>
 struct Cfg {
-  static constexpr int kBK = DP == 64 ? 128 : 64;   // kv rows per tile
-  static constexpr int kStages = DP == 64 ? 4 : 3;  // ring depth
-  static constexpr int kQBytes = kBQ * DP * 2;
-  static constexpr int kTileBytes = kBK * DP * 2;   // one K or V tile
+  static constexpr int kKBoxes = (DK + 63) / 64;      // 64-column boxes: Q, K
+  static constexpr int kVBoxes = (DV + 63) / 64;      // V
+  static constexpr int kBK = DK == 128 ? 64 : 128;    // kv rows per tile
+  static constexpr int kStages = DK == 128 ? 3 : 4;   // ring depth
+  static constexpr int kQBytes = kBQ * kKBoxes * 128;
+  static constexpr int kKBytes = kBK * kKBoxes * 128;  // one K tile
+  static constexpr int kVBytes = kBK * kVBoxes * 128;  // one V tile
   // + 1024 to align the swizzled tiles; above half the SM's shared memory,
-  // so one block per SM (the register split of setmaxnreg assumes it)
-  static constexpr int kSmem = kQBytes + 2 * kStages * kTileBytes + 1024;
+  // so one block per SM (the register split of setmaxnreg assumes it);
+  // (96, 64): 32 KB of Q + 4 x (32 + 16) KB of K and V + 1 KB = 230,400
+  static constexpr int kSmem =
+      kQBytes + kStages * (kKBytes + kVBytes) + 1024;
+  static_assert(DK % 16 == 0 && DV % 8 == 0 && DV <= DK, "instance");
+  static_assert(kSmem + 8 * (2 * kStages + 1) <= kSmemMax, "shared memory");
 };
 
 struct Params {
@@ -103,7 +133,7 @@ struct Params {
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
-  int S, T, G, dh, causal;
+  int S, T, G, dh, dv, causal;
   int o_pairs;       // o can be written as aligned bf16 pairs
   float scale_log2;  // scale * log2 e
 };
@@ -171,18 +201,21 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
 }
 
 // Element loads of `rows` rows (from row r0 of src, rows >= L and columns
-// >= dh as zeros) into kBoxes boxes of rows x 64 columns with the 128-byte
-// swizzle, as TMA would place them: the 16-byte chunk c / 8 of row r goes
-// to chunk (c / 8) ^ (r % 8).
-template <int DP>
+// >= width as zeros) into COLS / 64 boxes of rows x 64 columns with the
+// 128-byte swizzle, as TMA would place them: the 16-byte chunk c / 8 of row
+// r goes to chunk (c / 8) ^ (r % 8).  The producer runs in 40 registers:
+// unrolled by the compiler's choice, the (96, 64) instance's two widths of
+// tile spilled 20 bytes there; unrolled by 2 no instance spills.
+template <int COLS>
 __device__ __forceinline__ void load_tile(uint8_t* dst,
                                           const __nv_bfloat16* src,
                                           long long ss, int r0, int rows,
-                                          int L, int dh, int t) {
-  for (int idx = t; idx < rows * DP; idx += 128) {
-    const int r = idx / DP, d = idx % DP;
+                                          int L, int width, int t) {
+#pragma unroll 2
+  for (int idx = t; idx < rows * COLS; idx += 128) {
+    const int r = idx / COLS, d = idx % COLS;
     __nv_bfloat16 x = __ushort_as_bfloat16(0);
-    if (r0 + r < L && d < dh) x = src[(long long)(r0 + r) * ss + d];
+    if (r0 + r < L && d < width) x = src[(long long)(r0 + r) * ss + d];
     const int c = d & 63;
     *reinterpret_cast<__nv_bfloat16*>(dst + (d >> 6) * rows * 128 + r * 128 +
                                       (((c >> 3) ^ (r & 7)) << 4) +
@@ -356,19 +389,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // ---------------------------------------------------------------- kernel
 
-template <int DP, bool kTMA>
+template <int DK, int DV, bool kTMA>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const Params p) {
-  using C = Cfg<DP>;
+  using C = Cfg<DK, DV>;
   constexpr int kBK = C::kBK, kStages = C::kStages;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * kStages + 1];
   uint8_t* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* sK = sQ + C::kQBytes;               // kStages K tiles
-  uint8_t* sV = sK + kStages * C::kTileBytes;  // kStages V tiles
+  uint8_t* sK = sQ + C::kQBytes;            // kStages K tiles
+  uint8_t* sV = sK + kStages * C::kKBytes;  // kStages V tiles
   const uint32_t full0 = smem_u32(&bars[0]);
   const uint32_t empty0 = smem_u32(&bars[kStages]);
   const uint32_t qbar = smem_u32(&bars[2 * kStages]);
@@ -394,38 +427,40 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if constexpr (kTMA) {
       if (tid == 0) {
+        // every box lands whole (its zero fill included): the barriers
+        // expect the bytes of the boxes issued
         mbar_expect_tx(qbar, C::kQBytes);
-        for (int bx = 0; bx < DP / 64; ++bx)
+        for (int bx = 0; bx < C::kKBoxes; ++bx)
           tma_load_4d(smem_u32(sQ + bx * kBQ * 128), &tq, qbar, bx * 64, q0,
                       h, b);
         for (int kt = 0; kt < n_kv; ++kt) {
           const int s = kt % kStages;
           const uint32_t full = full0 + 8 * s;
           mbar_wait(empty0 + 8 * s, ((kt / kStages) & 1) ^ 1);
-          mbar_expect_tx(full, 2 * C::kTileBytes);
-          for (int bx = 0; bx < DP / 64; ++bx) {
-            const int off = s * C::kTileBytes + bx * kBK * 128;
-            tma_load_4d(smem_u32(sK + off), &tk, full, bx * 64, kt * kBK, hk,
-                        b);
-            tma_load_4d(smem_u32(sV + off), &tv, full, bx * 64, kt * kBK, hk,
-                        b);
-          }
+          mbar_expect_tx(full, C::kKBytes + C::kVBytes);
+          for (int bx = 0; bx < C::kKBoxes; ++bx)
+            tma_load_4d(smem_u32(sK + s * C::kKBytes + bx * kBK * 128), &tk,
+                        full, bx * 64, kt * kBK, hk, b);
+          for (int bx = 0; bx < C::kVBoxes; ++bx)
+            tma_load_4d(smem_u32(sV + s * C::kVBytes + bx * kBK * 128), &tv,
+                        full, bx * 64, kt * kBK, hk, b);
         }
       }
     } else {
       const __nv_bfloat16* q = p.q + b * p.q_sb + h * p.q_sh;
       const __nv_bfloat16* k = p.k + b * p.k_sb + hk * p.k_sh;
       const __nv_bfloat16* v = p.v + b * p.v_sb + hk * p.v_sh;
-      load_tile<DP>(sQ, q, p.q_ss, q0, kBQ, p.S, p.dh, tid);
+      constexpr int kQK = C::kKBoxes * 64, kV = C::kVBoxes * 64;
+      load_tile<kQK>(sQ, q, p.q_ss, q0, kBQ, p.S, p.dh, tid);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       mbar_arrive(qbar);
       for (int kt = 0; kt < n_kv; ++kt) {
         const int s = kt % kStages;
         mbar_wait(empty0 + 8 * s, ((kt / kStages) & 1) ^ 1);
-        load_tile<DP>(sK + s * C::kTileBytes, k, p.k_ss, kt * kBK, kBK, p.T,
-                      p.dh, tid);
-        load_tile<DP>(sV + s * C::kTileBytes, v, p.v_ss, kt * kBK, kBK, p.T,
-                      p.dh, tid);
+        load_tile<kQK>(sK + s * C::kKBytes, k, p.k_ss, kt * kBK, kBK, p.T,
+                       p.dh, tid);
+        load_tile<kV>(sV + s * C::kVBytes, v, p.v_ss, kt * kBK, kBK, p.T,
+                      p.dv, tid);
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         mbar_arrive(full0 + 8 * s);
       }
@@ -443,9 +478,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int cq = 2 * (lane & 3);
     const bool live = row_min < p.S;
     const float sl2 = p.scale_log2;
-    float o[DP / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
     const uint32_t q_addr = smem_u32(sQ) + wc * 64 * 128;
 
@@ -455,14 +490,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(full0 + 8 * s, (kt / kStages) & 1);
       const int k0 = kt * kBK;
       if (live && !(p.causal && k0 > row_max)) {
-        const uint32_t k_addr = smem_u32(sK + s * C::kTileBytes);
-        const uint32_t v_addr = smem_u32(sV + s * C::kTileBytes);
+        const uint32_t k_addr = smem_u32(sK + s * C::kKBytes);
+        const uint32_t v_addr = smem_u32(sV + s * C::kVBytes);
 
-        // S = Q K^T
+        // S = Q K^T over the DK columns: k-step ks reads 16 columns of box
+        // ks / 4, 32 bytes along its rows
         float sc[kBK / 2];
         wg_fence();
 #pragma unroll
-        for (int ks = 0; ks < DP / 16; ++ks) {
+        for (int ks = 0; ks < DK / 16; ++ks) {
           const uint32_t col = (ks & 3) * 32;
           mma_ss<kBK>(sc,
                       make_desc(q_addr + (ks >> 2) * kBQ * 128 + col, 16, 1024),
@@ -518,7 +554,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         l0 = l0 * a0 + ls0;
         l1 = l1 * a1 + ls1;
 #pragma unroll
-        for (int j = 0; j < DP / 8; ++j) {
+        for (int j = 0; j < DV / 8; ++j) {
           o[4 * j] *= a0;
           o[4 * j + 1] *= a0;
           o[4 * j + 2] *= a1;
@@ -529,7 +565,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk)
-          mma_rs<DP>(o, pr[4 * kk], pr[4 * kk + 1], pr[4 * kk + 2],
+          mma_rs<DV>(o, pr[4 * kk], pr[4 * kk + 1], pr[4 * kk + 2],
                      pr[4 * kk + 3],
                      make_desc(v_addr + kk * 16 * 128, kBK * 128, 1024));
         wg_commit();
@@ -554,16 +590,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (row >= p.S) continue;
       __nv_bfloat16* orow = ob + row * p.o_ss;
 #pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         const int d = 8 * j + cq;
         const float x0 = o[4 * j + 2 * e] / den[e];
         const float x1 = o[4 * j + 2 * e + 1] / den[e];
-        if (p.o_pairs && d + 1 < p.dh) {
+        if (p.o_pairs && d + 1 < p.dv) {
           *reinterpret_cast<__nv_bfloat162*>(orow + d) =
               __floats2bfloat162_rn(x0, x1);
         } else {
-          if (d < p.dh) orow[d] = __float2bfloat16(x0);
-          if (d + 1 < p.dh) orow[d + 1] = __float2bfloat16(x1);
+          if (d < p.dv) orow[d] = __float2bfloat16(x0);
+          if (d + 1 < p.dv) orow[d + 1] = __float2bfloat16(x1);
         }
       }
     }
@@ -596,17 +632,17 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A 4-D map over (dh, rows, heads, batch) with a 64 x box_rows box and the
-// 128-byte swizzle; false where TMA cannot take the tensor.
-bool encode(CUtensorMap* map, const void* base, int dh, int L, int Hn, int B,
-            long long ss, long long sh, long long sb, int box_rows) {
+// A 4-D map over (width, rows, heads, batch) with a 64 x box_rows box and
+// the 128-byte swizzle; false where TMA cannot take the tensor.
+bool encode(CUtensorMap* map, const void* base, int width, int L, int Hn,
+            int B, long long ss, long long sh, long long sb, int box_rows) {
   const EncodeTiled fn = encoder();
-  if (fn == nullptr || dh % 8 != 0 ||
+  if (fn == nullptr || width % 8 != 0 ||
       reinterpret_cast<uintptr_t>(base) % 16 != 0)
     return false;
   const long long st[3] = {ss, sh, sb};
   const int ext[3] = {L, Hn, B};
-  cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)L, (cuuint64_t)Hn,
+  cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)L, (cuuint64_t)Hn,
                         (cuuint64_t)B};
   cuuint64_t strides[3];
   for (int i = 0; i < 3; ++i) {
@@ -624,12 +660,12 @@ bool encode(CUtensorMap* map, const void* base, int dh, int L, int Hn, int B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DP, bool kTMA>
+template <int DK, int DV, bool kTMA>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, const Params& p, int B, int H,
                    cudaStream_t stream) {
-  auto kern = flash_fwd_sm90_kernel<DP, kTMA>;
-  constexpr int smem = Cfg<DP>::kSmem;
+  auto kern = flash_fwd_sm90_kernel<DK, DV, kTMA>;
+  constexpr int smem = Cfg<DK, DV>::kSmem;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -638,37 +674,41 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
   return cudaGetLastError();
 }
 
-template <int DP>
-cudaError_t launch_dp(const Params& p, int B, int H, int Hk, int* producer,
-                      cudaStream_t stream) {
+// chosen = {producer (1 TMA, 0 element loads), DK, DV}
+template <int DK, int DV>
+cudaError_t launch_instance(const Params& p, int B, int H, int Hk,
+                            int* chosen, cudaStream_t stream) {
+  constexpr int kBK = Cfg<DK, DV>::kBK;
   CUtensorMap tq{}, tk{}, tv{};
   const bool tma =
       encode(&tq, p.q, p.dh, p.S, H, B, p.q_ss, p.q_sh, p.q_sb, kBQ) &&
-      encode(&tk, p.k, p.dh, p.T, Hk, B, p.k_ss, p.k_sh, p.k_sb,
-             Cfg<DP>::kBK) &&
-      encode(&tv, p.v, p.dh, p.T, Hk, B, p.v_ss, p.v_sh, p.v_sb,
-             Cfg<DP>::kBK);
-  *producer = tma ? 1 : 0;
-  return tma ? launch<DP, true>(tq, tk, tv, p, B, H, stream)
-             : launch<DP, false>(tq, tk, tv, p, B, H, stream);
+      encode(&tk, p.k, p.dh, p.T, Hk, B, p.k_ss, p.k_sh, p.k_sb, kBK) &&
+      encode(&tv, p.v, p.dv, p.T, Hk, B, p.v_ss, p.v_sh, p.v_sb, kBK);
+  chosen[0] = tma ? 1 : 0;
+  chosen[1] = DK;
+  chosen[2] = DV;
+  return tma ? launch<DK, DV, true>(tq, tk, tv, p, B, H, stream)
+             : launch<DK, DV, false>(tq, tk, tv, p, B, H, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// bf16 q, k, v and o; strides in elements.  *producer is set to 1 where the
-// tiles went in by TMA, 0 where by element loads.
+// bf16 q, k (dh wide), v and o (dv wide); strides in elements.  chosen[0]
+// is set to 1 where the tiles went in by TMA, 0 where by element loads;
+// chosen[1] and chosen[2] to the instance's (DK, DV).
 int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
                              void* o, long long q_sb, long long q_ss,
                              long long q_sh, long long k_sb, long long k_ss,
                              long long k_sh, long long v_sb, long long v_ss,
                              long long v_sh, long long o_sb, long long o_ss,
                              long long o_sh, int B, int S, int T, int H,
-                             int Hk, int dh, float scale, int causal,
-                             int* producer, void* stream) {
+                             int Hk, int dh, int dv, float scale, int causal,
+                             int* chosen, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || H <= 0 || Hk <= 0 || H % Hk != 0 ||
-      dh <= 0 || dh > 128 || B > 65535 || H > 65535 || producer == nullptr)
+      dh <= 0 || dh > 128 || dv <= 0 || dv > dh || B > 65535 ||
+      H > 65535 || chosen == nullptr)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -683,13 +723,16 @@ int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
   p.T = T;
   p.G = H / Hk;
   p.dh = dh;
+  p.dv = dv;
   p.causal = causal ? 1 : 0;
-  p.o_pairs = reinterpret_cast<uintptr_t>(o) % 4 == 0 && dh % 2 == 0 &&
+  p.o_pairs = reinterpret_cast<uintptr_t>(o) % 4 == 0 && dv % 2 == 0 &&
               o_sb % 2 == 0 && o_ss % 2 == 0 && o_sh % 2 == 0;
   p.scale_log2 = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dh <= 64 ? (int)launch_dp<64>(p, B, H, Hk, producer, st)
-                  : (int)launch_dp<128>(p, B, H, Hk, producer, st);
+  if (dh <= 64) return (int)launch_instance<64, 64>(p, B, H, Hk, chosen, st);
+  if (dh <= 96 && dv <= 64)
+    return (int)launch_instance<96, 64>(p, B, H, Hk, chosen, st);
+  return (int)launch_instance<128, 128>(p, B, H, Hk, chosen, st);
 }
 
 const char* flash_attention_sm90_error_string(int code) {

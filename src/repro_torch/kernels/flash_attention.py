@@ -36,7 +36,8 @@ headers say what bounds them and how they are tiled.  This module holds
 * ``launches``: ``flash_attention`` counts the wrapper's launches,
   ``flash_attention_sm90`` / ``flash_attention_f32`` those of each device
   kernel; ``producers`` counts the bf16 kernel's launches by how its tiles
-  went in (``tma`` or ``loads``);
+  went in (``tma`` or ``loads``), ``instances`` by the (q/k width, v
+  width) it was compiled for (``64x64``, ``96x64``, ``128x128``);
 * ``plain_calls``: the plain version's calls on CUDA tensors (prefill on a
   card leaves it at 0);
 * :func:`work` — the bytes and FLOPs the function needs for one call (the
@@ -49,12 +50,14 @@ headers say what bounds them and how they are tiled.  This module holds
 
 Layout: the model's, q (B, S, H, dh), k (B, T, Hk, dh) and v (B, T, Hk,
 dv) with H a multiple of Hk (query head h reads kv head h // (H / Hk)) and
-dv <= dh.  The kernel reads any strides with a contiguous head dim, so (B,
+dv <= dh.  The kernels read any strides with a contiguous head dim, so (B,
 H, S, dh) tensors go in as ``transpose(1, 2)`` views
 (``ops.flash_attention``).  A v narrower than q and k (MLA: dh = 96, dv =
-64) goes to the kernel zero-padded to dh, in one launch, and the output is
-sliced back to dv: the padded columns are sums of zeros, so the result is
-exact, and the scale stays 1/sqrt(dh).
+64): the bf16 kernel reads it at its own width (MLA's shape has an
+instance of its own, q/k 96 over v 64) and writes a dv-wide output; the
+float32 kernel takes v as wide as q and k, so v goes to it zero-padded to
+dh and its output is sliced back to dv (the padded columns are sums of
+zeros, so the result is exact).  The scale stays 1/sqrt(dh).
 
 Causal alignment: TOP-LEFT.  With ``causal`` key t is visible to query s
 iff t <= s, whatever S and T are: the TPU kernel's mask (``k_pos <=
@@ -87,6 +90,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 launches = {"flash_attention": 0, "flash_attention_sm90": 0,
             "flash_attention_f32": 0}
 producers = {"tma": 0, "loads": 0}
+instances = {"64x64": 0, "96x64": 0, "128x128": 0}
 plain_calls = {"flash_attention_plain": 0}
 recomputes = {"flash_attention_vjp": 0}
 meta_calls = {"flash_attention": 0}
@@ -95,7 +99,8 @@ meta_reads = set()   # ``untyped_storage()._cdata`` of the inputs
 
 
 def reset_launch_counts() -> None:
-    for counts in (launches, producers, plain_calls, recomputes):
+    for counts in (launches, producers, instances, plain_calls,
+                   recomputes):
         for name in counts:
             counts[name] = 0
     reset_meta_counts()
@@ -117,8 +122,8 @@ def work(B, S, H, Hk, dh, *, T=None, dv=None, causal=True,
     visible (query, key) pair and head (the scores and the P V product).
     Causal (top-left) query s sees min(s + 1, T) keys, S (S + 1) / 2 pairs
     at S == T; a non-causal call sees S T.  A v narrower than dh counts at
-    its own width: the kernel's zero-padded columns are not work the
-    function needs."""
+    its own width: the float32 kernel's zero-padded columns are not work
+    the function needs."""
     dv = dh if dv is None else dv
     T = S if T is None else T
     nbytes = nbytes_el * B * (dh + dv) * (S * H + T * Hk)
@@ -224,7 +229,10 @@ def flash_attention_plain(q, k, v, *, causal=True, block_q=512):
 def flash_attention(q, k, v, *, causal=True, block_q=512):
     """K5: attention of q (B, S, H, dh) over k (B, T, Hk, dh) and v (B, T,
     Hk, dv), dv <= dh, top-left causal mask with ``causal``; returns (B, S,
-    H, dv) in q's dtype (on a card with q's strides where q is dense).
+    H, dv) in q's dtype.  On a card a bf16 output is dense in q's order of
+    dimensions (q's strides where q is dense and dv == dh; a contiguous
+    output for a contiguous q whatever dv is), a float32 one is the first
+    dv columns of an output with q's strides.
 
     CPU tensors take the plain version (``block_q`` bounds its scores'
     memory; the kernels tile by their own sizes); CUDA tensors launch the
@@ -277,9 +285,11 @@ def _library(stem: str):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fwd = getattr(lib, f"{stem}_fwd")
     err = getattr(lib, f"{stem}_error_string")
-    extra = [ctypes.POINTER(i)] if stem == "flash_attention_sm90" else []
-    fwd.argtypes = ([p] * 4 + [ll] * 12 + [i] * 6 + [ctypes.c_float] + [i]
-                    + extra + [p])
+    # the bf16 entry also takes dv and reports (producer, DK, DV)
+    sm90 = stem == "flash_attention_sm90"
+    fwd.argtypes = ([p] * 4 + [ll] * 12 + [i] * (7 if sm90 else 6)
+                    + [ctypes.c_float] + [i]
+                    + ([ctypes.POINTER(i)] if sm90 else []) + [p])
     fwd.restype = i
     err.argtypes = [i]
     err.restype = ctypes.c_char_p
@@ -323,12 +333,18 @@ def _launch(q, k, v, causal):
     _check(q, k, v)
     B, S, H, dh = q.shape
     T, Hk, dv = k.shape[1], k.shape[2], v.shape[3]
-    if dv < dh:
-        # a narrower v (MLA's 64 under a 96-wide q/k head) goes in
-        # zero-padded to dh: the output's extra columns are sums of zeros,
-        # sliced off below; the scale stays 1/sqrt(dh)
-        v = torch.nn.functional.pad(v, (0, dh - dv))
-    o = torch.empty_like(q)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        # v at its own width; o (B, S, H, dv) dense in q's dimension order
+        # (empty_like keeps the order of a non-dense view), so a contiguous
+        # q gives a contiguous o and the model's (B, S, H * dv) a view
+        o = torch.empty_like(q[..., :dv])
+    else:
+        # the float32 kernel's padded route: v zero-padded to dh, the
+        # output's extra columns sums of zeros, sliced off on return
+        if dv < dh:
+            v = torch.nn.functional.pad(v, (0, dh - dv))
+        o = torch.empty_like(q)
     if S == 0 or B == 0:
         return o[..., :dv]
     if q.device.type == "meta":
@@ -339,24 +355,25 @@ def _launch(q, k, v, causal):
         meta_work["bytes"] += nbytes
         meta_work["flops"] += flops
         meta_reads.update(t.untyped_storage()._cdata for t in (q, k, v))
-        return o if dv == dh else o[..., :dv]
-    bf16 = q.dtype == torch.bfloat16
+        return o if o.shape[-1] == dv else o[..., :dv]
     stem = "flash_attention_sm90" if bf16 else "flash_attention"
     fwd, err = _library(stem)
-    producer = ctypes.c_int(-1)
+    chosen = (ctypes.c_int * 3)(-1, -1, -1)   # producer, DK, DV
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  *(t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)),
-                 B, S, T, H, Hk, dh, 1.0 / math.sqrt(dh), int(causal),
-                 *([ctypes.byref(producer)] if bf16 else []), stream)
+                 B, S, T, H, Hk, dh, *([dv] if bf16 else []),
+                 1.0 / math.sqrt(dh), int(causal),
+                 *([chosen] if bf16 else []), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed ({rc}: "
                            f"{err(rc).decode()})")
     launches["flash_attention"] += 1
     if bf16:
         launches["flash_attention_sm90"] += 1
-        producers["tma" if producer.value == 1 else "loads"] += 1
+        producers["tma" if chosen[0] == 1 else "loads"] += 1
+        instances[f"{chosen[1]}x{chosen[2]}"] += 1
     else:
         launches["flash_attention_f32"] += 1
-    return o if dv == dh else o[..., :dv]
+    return o if o.shape[-1] == dv else o[..., :dv]

@@ -507,28 +507,134 @@ def test_flash_attention_bf16_kernel_on_card(dev, dh, producer, S, T, causal,
                                atol=1e-2)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 1e-2)], ids=str)
-@pytest.mark.parametrize("S", [1, 37, 130, 1024])
-def test_flash_attention_mla_shape_on_card(dev, S, dtype, tol):
-    """minicpm3-4b's attention: H = Hk = 40, a 96-wide q/k head over a
-    64-wide v head, causal.  One wrapper call, one launch of the kernel of
-    its dtype (bf16 by TMA: v goes in zero-padded to 96), a (B, S, H, 64)
-    output with q's strides, within K5's bound of the plain version."""
-    q, k, _ = _qkv(dev, 1, S, S, 40, 40, 96, dtype, seed=S)
-    v = torch.randn((1, S, 40, 64), generator=torch.Generator().manual_seed(
-        S + 1)).to(dev, dtype)
-    FA.reset_launch_counts()
-    got = FA.flash_attention(q, k, v, causal=True)
-    want = FA.flash_attention_plain(q, k, v, causal=True)
+def _device_kernels(fn):
+    """``fn()`` under torch.profiler: its result and the names of the
+    device kernels, copies and sets it ran.  A pad of spin kernels opens
+    the window and takes the session's loss of its first device records
+    (as ``chip_smoke.py``'s profiled windows); its records are left out.
+    The loss grows with the sessions a process has run (on the H100 it
+    passed 256 records by the 25th), so the pad is 2048 and at least one
+    of its records must come through: then none of ``fn``'s was lost."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pad = 2048
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(pad):
+            torch.cuda._sleep(2000)
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", lambda: False)()]
+    spin = sum("spin_kernel" in n for n in names)
+    assert spin > 0, f"the profiler lost more than the pad's {pad} records"
+    return out, [n for n in names if "spin_kernel" not in n]
+
+
+def _check_mla_launch(dtype, names, instance="96x64", producer="tma"):
+    """One K5 launch on the kernel of its dtype.  bf16: the instance given,
+    and no other device work inside the wrapper (no pad of v); float32:
+    one launch of its kernel beside the pad of v to dh."""
     kern = "flash_attention_sm90" if dtype == torch.bfloat16 else \
         "flash_attention_f32"
     assert FA.launches["flash_attention"] == FA.launches[kern] == 1
     if dtype == torch.bfloat16:
-        assert FA.producers == {"tma": 1, "loads": 0}
-    assert got.shape == v.shape[:3] + (64,) and got.stride() == q.stride()
+        assert FA.producers[producer] == 1 and sum(FA.producers.values()) == 1
+        assert FA.instances[instance] == 1 and \
+            sum(FA.instances.values()) == 1
+        assert len(names) == 1 and "flash_fwd_sm90_kernel" in names[0], names
+    else:
+        assert sum("flash_fwd_kernel" in n for n in names) == 1, names
+
+
+def _check_dv_layout(got, q):
+    """A bf16 output dv wide and dense in q's order of dimensions; a float32
+    one the first dv columns of an output with q's strides."""
+    if got.dtype == torch.float32:
+        assert got.stride() == q.stride()
+    elif q.is_contiguous():
+        assert got.is_contiguous()
+    else:
+        assert q.transpose(1, 2).is_contiguous() and \
+            got.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1e-2)], ids=str)
+@pytest.mark.parametrize("S", [1, 37, 130, 1024, 4096])
+def test_flash_attention_mla_shape_on_card(dev, S, dtype, tol):
+    """minicpm3-4b's attention: H = Hk = 40, a 96-wide q/k head over a
+    64-wide v head, causal.  One wrapper call, one launch of the kernel of
+    its dtype (bf16: the (96, 64) instance by TMA, v read at its width and
+    nothing else launched; float32: v zero-padded to 96), a (B, S, H, 64)
+    output (bf16: contiguous like q), within K5's bound of the plain
+    version."""
+    q, k, _ = _qkv(dev, 1, S, S, 40, 40, 96, dtype, seed=S)
+    v = torch.randn((1, S, 40, 64), generator=torch.Generator().manual_seed(
+        S + 1)).to(dev, dtype)
+    FA.reset_launch_counts()
+    got, names = _device_kernels(lambda: FA.flash_attention(q, k, v,
+                                                            causal=True))
+    _check_mla_launch(dtype, names)
+    want = FA.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert got.shape == v.shape[:3] + (64,)
+    _check_dv_layout(got, q)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1e-2)], ids=str)
+@pytest.mark.parametrize("B,S,T,H,Hk,causal,heads_first", [
+    (2, 200, 200, 8, 2, True, False),      # GQA 8/2
+    (1, 150, 333, 40, 40, False, False),   # not causal, ragged end of T
+    (1, 70, 200, 8, 2, True, False),       # S < T, top-left mask
+    (1, 300, 300, 40, 40, True, True),     # (B, H, S, dh)-stored q, k, v
+])
+def test_flash_attention_mla_instance_on_card(dev, B, S, T, H, Hk, causal,
+                                              heads_first, dtype, tol):
+    """MLA's 96-wide q/k over a 64-wide v beyond minicpm3-4b's own calls:
+    the (96, 64) instance (bf16) or the padded float32 route, one launch,
+    against the plain version."""
+    q, k, v = _qkv(dev, B, S, T, H, Hk, 96, dtype, seed=S + T,
+                   heads_first=heads_first)
+    v = v[..., :64].contiguous() if not heads_first else \
+        v[..., :64].transpose(1, 2).contiguous().transpose(1, 2)
+    FA.reset_launch_counts()
+    got, names = _device_kernels(lambda: FA.flash_attention(q, k, v,
+                                                            causal=causal))
+    _check_mla_launch(dtype, names)
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == (B, S, H, 64)
+    _check_dv_layout(got, q)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dh,dv,instance,producer", [
+    (64, 32, "64x64", "tma"), (72, 40, "96x64", "tma"),
+    (96, 80, "128x128", "tma"), (128, 64, "128x128", "tma"),
+    (100, 64, "128x128", "loads"), (100, 50, "128x128", "loads"),
+    (88, 60, "96x64", "loads")])
+def test_flash_attention_narrow_v_instances_on_card(dev, dh, dv, instance,
+                                                    producer):
+    """bf16 v narrower than q and k outside MLA's shape: each instance
+    reads v at its own width (no pad, one device kernel), by TMA where the
+    widths are multiples of 8."""
+    q, k, v = _qkv(dev, 2, 200, 200, 8, 2, dh, torch.bfloat16, seed=dh + dv)
+    v = v[..., :dv].contiguous()
+    FA.reset_launch_counts()
+    got, names = _device_kernels(lambda: FA.flash_attention(q, k, v))
+    _check_mla_launch(torch.bfloat16, names, instance, producer)
+    want = FA.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 200, 8, dv) and got.is_contiguous()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
@@ -774,7 +880,8 @@ def test_flash_attention_train_on_card(dev, dtype, tol):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 1e-2)], ids=str)
 def test_flash_attention_train_mla_shape_on_card(dev, dtype, tol):
-    """The training entry at MLA's dh 96 / dv 64: one K5 launch (v padded
+    """The training entry at MLA's dh 96 / dv 64: one K5 launch (bf16: the
+    (96, 64) instance and nothing else in the forward; float32: v padded
     inside), and the gradient of the unpadded v, equal to autograd through
     the plain version."""
     q, k, _ = _qkv(dev, 1, 130, 130, 40, 40, 96, dtype, seed=11)
@@ -784,16 +891,17 @@ def test_flash_attention_train_mla_shape_on_card(dev, dtype, tol):
 
     def run(fn):
         ts = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = fn(*ts, causal=True)
-        return out.detach(), torch.autograd.grad(out, ts, do)
+        out, names = _device_kernels(lambda: fn(*ts, causal=True))
+        return out.detach(), torch.autograd.grad(out, ts, do), names
 
     FA.reset_launch_counts()
-    got, g_got = run(FA.flash_attention_train)
+    got, g_got, names = run(FA.flash_attention_train)
     torch.cuda.synchronize()
-    assert FA.launches["flash_attention"] == 1
+    _check_mla_launch(dtype, names)
+    _check_dv_layout(got, q)
     assert FA.recomputes["flash_attention_vjp"] == 1
     assert g_got[2].shape == v.shape
-    want, g_want = run(FA.flash_attention_plain)
+    want, g_want, _ = run(FA.flash_attention_plain)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     for a, b in zip(g_got, g_want):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)

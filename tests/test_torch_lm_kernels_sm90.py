@@ -4,9 +4,12 @@ against the port's plain versions and the JAX package's Pallas kernels
 (interpret mode, as ``tests/test_kernels.py`` and
 ``tests/test_kernels_wkv6.py`` run them).
 
-K5's twin repeats ``csrc/flash_attention_sm90.cu``'s loop: 128-row query
-tiles in two 64-row halves, kv tiles of 128 rows (64 for head dims above
-64), the walk stopping at the block's last visible tile and a half skipping
+K5's twin repeats ``csrc/flash_attention_sm90.cu``'s loop at the instance
+the kernel picks for (dh, dv): 128-row query tiles in two 64-row halves, kv
+tiles of 128 rows (64 at the instance whose q/k width is 128: dh above 96,
+or above 64 with v wider than 64), v at its own width (MLA's 96 over 64 has
+an instance of its own), the walk stopping at the block's last visible tile
+and a half skipping
 tiles wholly above its rows, the -1e30 mask only on tiles that cross the
 diagonal or the end of T (the twin checks that every other tile has
 nothing to mask), exp2 with scale * log2 e folded into one multiply, P
@@ -66,19 +69,29 @@ def _bf16_valued(rng, shape):
     return x.to(torch.bfloat16).float()
 
 
+def _sm90_instance(dh, dv):
+    """(DK, DV) of the instance ``flash_attention_sm90_fwd`` launches."""
+    if dh <= 64:
+        return 64, 64
+    if dh <= 96 and dv <= 64:
+        return 96, 64
+    return 128, 128
+
+
 def _flash_sm90_twin(q, k, v, causal):
     """Torch twin of ``flash_fwd_sm90_kernel``; model layout q (B, S, H, dh),
-    k/v (B, T, Hk, dh), float32 in and out."""
+    k (B, T, Hk, dh), v (B, T, Hk, dv), float32 in and out (B, S, H, dv)."""
     B, S, H, dh = q.shape
-    T, Hk = k.shape[1], k.shape[2]
+    T, Hk, dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hk
-    bq, bk = 128, (128 if dh <= 64 else 64)
+    dk, _ = _sm90_instance(dh, dv)
+    bq, bk = 128, (64 if dk == 128 else 128)
     sl2 = math.log2(math.e) / math.sqrt(dh)
     n_q, n_t = -(-S // bq), -(-T // bk)
     qf = F.pad(q.transpose(1, 2), (0, 0, 0, n_q * bq - S))
     kf, vf = (F.pad(t.repeat_interleave(G, dim=2).transpose(1, 2),
                     (0, 0, 0, n_t * bk - T)) for t in (k, v))
-    out = torch.zeros_like(qf)
+    out = torch.zeros((B, H, n_q * bq, dv))
     for qt in range(n_q):
         q0 = qt * bq
         n_kv = min(n_t, (min(q0 + bq, S) - 1) // bk + 1) if causal else n_t
@@ -91,7 +104,7 @@ def _flash_sm90_twin(q, k, v, causal):
             qi = qf[:, :, row_min:row_min + 64]
             m = torch.full((B, H, 64), -1e30)
             l = torch.zeros((B, H, 64))
-            acc = torch.zeros((B, H, 64, dh))
+            acc = torch.zeros((B, H, 64, dv))
             for kt in range(n_kv):
                 k0 = kt * bk
                 if causal and k0 > row_max:
@@ -117,6 +130,12 @@ def _flash_sm90_twin(q, k, v, causal):
     return out[:, :, :S].transpose(1, 2)
 
 
+def _narrow(S, T, H, Hk, dh, dv, causal, what):
+    """A case whose v is narrower than q and k: ``dh`` is (dh, dv)."""
+    return pytest.param(S, T, H, Hk, (dh, dv), causal,
+                        id=f"{S}-{T}-{H}-{Hk}-{dh}v{dv}-{causal}-{what}")
+
+
 @pytest.mark.parametrize("S,T,H,Hk,dh,causal", [
     (128, 128, 4, 2, 64, True),      # one query tile, one kv tile
     (300, 300, 4, 1, 64, True),      # ragged S = T, tiles of 128
@@ -125,13 +144,26 @@ def _flash_sm90_twin(q, k, v, causal):
     (70, 200, 4, 2, 64, True),       # S < T, top-left mask
     (200, 70, 4, 2, 64, True),       # S > T: the half past T's diagonal
     (150, 333, 2, 1, 32, False),     # not causal, ragged end of T
+    # MLA's instance, q/k 96 over v 64, kv tiles of 128
+    _narrow(300, 300, 4, 4, 96, 64, True, "mla-ragged"),
+    _narrow(200, 200, 8, 2, 96, 64, True, "mla-gqa"),
+    _narrow(70, 200, 4, 2, 96, 64, True, "mla-s-lt-t"),
+    _narrow(150, 333, 4, 2, 96, 64, False, "mla-not-causal"),
+    # the other narrow v's: each instance reads v at its own width
+    _narrow(200, 200, 4, 2, 64, 32, True, "dk64"),
+    _narrow(200, 200, 4, 2, 96, 80, True, "dk128"),
+    _narrow(130, 130, 2, 1, 128, 64, True, "dk128-dv64"),
 ])
 def test_flash_sm90_twin_vs_plain(S, T, H, Hk, dh, causal):
-    rng = _rng("sm90", S, T, dh, causal)
+    dh, dv = dh if isinstance(dh, tuple) else (dh, dh)
+    rng = _rng("sm90", S, T, dh, causal) if dv == dh else \
+        _rng("sm90", S, T, dh, dv, causal)
     q = _bf16_valued(rng, (2, S, H, dh))
-    k, v = (_bf16_valued(rng, (2, T, Hk, dh)) for _ in range(2))
+    k = _bf16_valued(rng, (2, T, Hk, dh))
+    v = _bf16_valued(rng, (2, T, Hk, dv))
     want = FA.flash_attention_plain(q, k, v, causal=causal)
     got = _flash_sm90_twin(q, k, v, causal)
+    assert got.shape == (2, S, H, dv)
     gap = float((got - want).abs().max())
     assert gap <= BF16_U * float(v.abs().max()) + 1e-5
     assert gap > 0   # P's rounding is modelled, not skipped
@@ -253,10 +285,16 @@ def test_launch_counters_name_every_device_kernel():
     assert set(FA.launches) == {"flash_attention", "flash_attention_sm90",
                                 "flash_attention_f32"}
     assert set(FA.producers) == {"tma", "loads"}
+    assert set(FA.instances) == {
+        f"{dk}x{dv}" for dk, dv in (_sm90_instance(64, 64),
+                                    _sm90_instance(96, 64),
+                                    _sm90_instance(128, 128))}
     assert set(WK.launches) == {"wkv6", "wkv6_chunk", "wkv6_scan",
                                 "wkv6_out"}
     FA.producers["tma"] += 1
+    FA.instances["96x64"] += 1
     FA.reset_launch_counts()
     WK.reset_launch_counts()
     assert not any(FA.launches.values()) and not any(FA.producers.values())
+    assert not any(FA.instances.values())
     assert not any(WK.launches.values())

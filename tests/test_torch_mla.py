@@ -15,8 +15,9 @@ packages by nope 16 + rope 8 = 24 over v 16 (the same 3 : 2).
   two frameworks);
 * the flash-attention wrapper (K5) with dv < dh on CPU tensors against the
   reference's ``layers.chunked_attention``, forward and VJP (1e-5), and the
-  identity the card path relies on: attention on v zero-padded to dh,
-  sliced back to dv, equals attention on v (1e-6: the same arithmetic).
+  identity the float32 card path relies on: attention on v zero-padded to
+  dh, sliced back to dv, equals attention on v (1e-6: the same
+  arithmetic).
 """
 import dataclasses
 
@@ -208,8 +209,10 @@ def test_flash_attention_narrow_v_matches_reference(H, Hk):
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_zero_padded_v_sliced_back_is_attention_on_v(causal):
-    """What K5's wrapper does on a card with dv < dh: pad v with zeros to
-    dh, attend, keep the first dv columns.  The padded columns come out
+    """What K5's wrapper does for float32 on a card with dv < dh: pad v
+    with zeros to dh, attend, keep the first dv columns (the bf16 kernel
+    reads v at its own width, and its zero fill past dv rests on the same
+    identity).  The padded columns come out
     zero and the kept ones equal attention on v."""
     q, k, v = (torch.as_tensor(a) for a in _qkv_narrow(S=70, seed=9))
     dh, dv = q.shape[-1], v.shape[-1]
