@@ -2,7 +2,7 @@
 """Card check of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--out results.json]
-    python3 chip_smoke.py --ab DIR   # K3/K4 against DIR's sources, in turns
+    python3 chip_smoke.py --ab DIR   # K5 / K3/K4 against DIR's sources
     python3 chip_smoke.py --only distributed   # build + phase 7 only
     python3 chip_smoke.py --only scenarios     # build + phase 8 only
     python3 chip_smoke.py --only lm            # build + phases 9-12 only
@@ -10,18 +10,23 @@
     python3 chip_smoke.py --only ep            # build + phase 14, 15 (e)
 
 Run from the root of a checkout.  With ``--ab DIR`` only the build and an
-A/B runs: this checkout's K3 and K4 and the ones built from
-``DIR/pinn_mlp_fwd.cu`` / ``DIR/pinn_mlp_bwd.cu`` (another revision, e.g.
-``git show HEAD~1:src/repro_torch/csrc/pinn_mlp_fwd.cu``), each held
-against the plain versions, timed in turns (other, this, this, other) at
-the training shapes of phase 3.  Otherwise, phases in order; a failure in
+A/B runs: this checkout's kernels and the ones built from another
+revision's sources in DIR (e.g. ``git show
+HEAD~1:src/repro_torch/csrc/flash_attention_sm90.cu``), each held against
+the plain versions, timed in turns (other, this, this, other): K5's sm90
+kernel from ``DIR/flash_attention_sm90.cu`` at each of its instances'
+configurations (K5_AB: B 1, S = T = 4096, causal, beside SDPA), K3 and K4
+from ``DIR/pinn_mlp_fwd.cu`` / ``DIR/pinn_mlp_bwd.cu`` at the training
+shapes of phase 3.  Otherwise, phases in order; a failure in
 any of them ends the run with a non-zero exit code and no result line:
 
 1. **build** — compile every CUDA source under ``src/repro_torch/csrc/``
    (one ``nvcc`` per source, all started together) and print the seconds,
    the registers and spill bytes of every K1-K4 instantiation and of the
    bf16 K5 kernel's six (its instances (q/k, v) = (64, 64), (96, 64) and
-   (128, 128), each by TMA and by element loads; none may spill), and per
+   (128, 128), each by TMA and by element loads) and of the short K5
+   kernel's four (rows a block 1 and 2, 8 or 16 lanes a key); none may
+   spill, and per
    kernel the count of
    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in the built
    library's SASS (``cuobjdump -sass``): the bf16 K5 kernel must hold
@@ -136,7 +141,12 @@ any of them ends the run with a non-zero exit code and no result line:
    8/8, 4/1, head dims 64, 128, 100, S = T in {1, 37, 64, 130, 200, 333,
    2048}, and S != T causal (top-left) and not causal, each in the model's
    (B, S, H, dh) layout and as (B, H, S, dh) storage, every case counted on
-   the device kernel of its dtype; K5 at minicpm3-4b's MLA shape (H = Hk =
+   the device kernel its dtype and query length ask for (bf16 with S <=
+   S_SHORT on the short kernel, at the bf16 tolerance); the
+   short route at S in {1, 2, S_SHORT} and S_SHORT + 1 (the sm90 kernel),
+   T in {1, 8, 1023, 4096}, 32/8 heads of 64, 100, 128 and 96 over 64,
+   causal both ways, both layouts, and the short kernel forced at S in
+   {2, 5, 16, 64} over 8 and 1023 keys; K5 at minicpm3-4b's MLA shape (H = Hk =
    40, a 96-wide q/k head over a 64-wide v head, causal, S = T in {1, 37,
    130, 1024, 4096}, (B, S, H, dh) layout; bf16 by TMA on the (96, 64)
    instance, v read at its own width; float32 with v zero-padded inside
@@ -173,7 +183,11 @@ any of them ends the run with a non-zero exit code and no result line:
    beside the same three; K5 at seamless-m4t-large-v2's four calls
    (ENCDEC_K5: causal or not, S = T or S != T) beside the same three, the
    bound counting S T visible pairs where the call is not causal and
-   reading q and o over S, k and v over T; K6 at rwkv6-3b's
+   reading q and o over S, k and v over T; the decode call over 1024
+   frames (K5_DECODE_LONG: the short kernel splits its keys) beside the
+   same three and the sm90 kernel; the crossover table that sets S_SHORT
+   (the short kernel, the sm90 kernel and SDPA at K5_CROSS_S queries over
+   K5_CROSS_T keys at two head configurations); K6 at rwkv6-3b's
    per-layer shape (B = 1, T = 4096, H = 40, P = 64, float32) beside its
    plain version;
 11. **llm** — llama3.2-1b, minicpm3-4b (MLA), rwkv6-3b,
@@ -221,7 +235,10 @@ any of them ends the run with a non-zero exit code and no result line:
    (the first run pays the card's first-use costs): a (4, 32) token array,
    its tokens/s printed, each run counted: no kernel launch but
    seamless's, whose run encodes its 8 frames (24 K5 launches) and
-   launches K5 24 times in each of its 31 decode steps;
+   launches K5 24 times in each of its 31 decode steps, each of those
+   one-query calls on the short kernel; seamless is served a third time
+   with S_SHORT at 0 (all 768 on the sm90 kernel, counted) for its
+   tokens/s before the short route;
 13. **lm train** — ``repro_torch.launch.train.main(["lm", ...])`` on the
    card, each run with the counts set to 0 just before and read just
    after: (a) llama3.2-1b at its published size, B = 4, S = 1024, 30
@@ -344,7 +361,8 @@ any of them ends the run with a non-zero exit code and no result line:
 16. **report** — one ``{"kernels": [...]}`` line (K1-K6; K5 and K6 also
    at the training shapes, K5 also at minicpm3's MLA shape, the MoE
    configs' shapes, the VLM's and zamba2's paths, seamless's four calls
-   and the ep path's launches a rank), the card's name
+   and the ep path's launches a rank; K5's short kernel at seamless's
+   decode call and over 1024 frames), the card's name
    and power limit from ``nvidia-smi``, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Each phase prints its seconds.
@@ -399,10 +417,13 @@ SOURCES = {"pinn_mlp_fwd1": "src/repro_torch/csrc/pinn_mlp_fwd.cu",
            "pinn_mlp_fwd2_res": "src/repro_torch/csrc/pinn_mlp_fwd.cu",
            "pinn_mlp_bwd2": "src/repro_torch/csrc/pinn_mlp_bwd.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attention_sm90.cu",
+           "flash_attention_short":
+               "src/repro_torch/csrc/flash_attention_short.cu",
            "wkv6": "src/repro_torch/csrc/wkv6.cu"}
 # device kernels behind the K5 / K6 wrappers (launch counters, and the
 # names by which the profiler split finds them)
 DEVICE_KERNELS = {"flash_attention_sm90": "flash_fwd_sm90_kernel",
+                  "flash_attention_short": "flash_short_kernel",
                   "flash_attention_f32": "flash_fwd_kernel",
                   "wkv6_chunk": "wkv6_chunk_kernel",
                   "wkv6_scan": "wkv6_scan_kernel",
@@ -430,6 +451,8 @@ REPLACES = {"pinn_mlp_fwd1": "src/repro/kernels/pinn_mlp.py:82",
             "pinn_mlp_fwd2_res": "src/repro/kernels/pinn_mlp.py:166",
             "pinn_mlp_bwd2": "src/repro/kernels/pinn_mlp.py:184",
             "flash_attention": "src/repro/kernels/flash_attention.py:31",
+            "flash_attention_short":
+                "src/repro/kernels/flash_attention.py:31",
             "wkv6": "src/repro/kernels/wkv6.py:27"}
 # K5 against its plain version: float32 at 2e-5 (the sums run in another
 # order); bf16 with both outputs rounded to bf16 at 1e-2 (values that agree
@@ -491,6 +514,19 @@ MLA_HEADS = (40, 96, 64)   # (H = Hk, dh, dv)
 # the bf16 K5 kernel's instances, (q/k width) x (v width), each built by
 # TMA and by element loads (csrc/flash_attention_sm90.cu)
 SM90_INSTANCES = ("64x64", "96x64", "128x128")
+# the short kernel's instantiations (csrc/flash_attention_short.cu): rows a
+# block 1 and 2, each with 8 or 16 lanes a key (dh up to 64, up to 128)
+SHORT_INSTANCES = 4
+# K5's short route (bf16, S <= S_SHORT): the crossover table's query
+# lengths, at seamless's decode heads (B 4, 16/16 of 64) and at phi3.5-moe
+# / llava's (B 1, 32/8 of 128), over T 8 and 1024, non-causal
+K5_CROSS_S = (1, 2, 4, 8, 16, 32, 64)
+K5_CROSS_T = (8, 1024)
+K5_CROSS_HEADS = {"seamless 16/16 of 64": (4, 16, 16, 64),
+                  "phi3.5-moe / llava 32/8 of 128": (1, 32, 8, 128)}
+# the decode call at a long cross cache: seamless's heads, one query over
+# 1024 frames (the short kernel splits the keys over blocks)
+K5_DECODE_LONG = (4, 1, 1024)
 # lm_train's runs of ``launch.train lm``: llama3.2-1b at its published size
 # (B x S cut from train_4k's 256 x 4096), checkpointed every LM_CKPT_EVERY
 # steps and resumed; rwkv6-3b at full width and 12 of its 32 layers, and
@@ -616,6 +652,17 @@ def build_phase() -> None:
     check(len(k5) == 2 * len(SM90_INSTANCES),
           f"bf16 K5 instantiations {[r[0] for r in k5]}")
     check(all(r[2] == 0 for r in k5), "a bf16 K5 instantiation spills "
+          "registers")
+    short = _ptxas_report(info["flash_attention_short"]["log"],
+                          "flash_short_kernel")
+    for kern, nreg, spill in short:
+        print(f"ptxas flash_attention_short: {kern} registers {nreg} spill "
+              f"bytes {spill}")
+    emit({"ptxas_k5_short": {kern: {"registers": nreg, "spill_bytes": spill}
+                             for kern, nreg, spill in short}})
+    check(len(short) == SHORT_INSTANCES,
+          f"short K5 instantiations {[r[0] for r in short]}")
+    check(all(r[2] == 0 for r in short), "a short K5 instantiation spills "
           "registers")
     sass = _sass_counts(info)
     emit({"sass": sass})
@@ -1230,7 +1277,88 @@ def train_timing(dev, m_main: int) -> dict:
     return out
 
 
+# the K5 A/B's shapes: each sm90 instance at a configuration's per-layer
+# prefill attention (B 1, S = T = 4096, causal), (name, H, Hk, dh, dv)
+K5_AB = (("phi3.5-moe / llava", 32, 8, 128, 128),
+         ("deepseek-moe-16b", 16, 16, 128, 128),
+         ("llama3.2-1b", 32, 8, 64, 64),
+         ("minicpm3-4b MLA", 40, 40, 96, 64))
+
+
 def ab_phase(dev, other: str, m_main: int) -> None:
+    """This checkout's kernels against those built from another revision's
+    sources in the directory ``other``, in one process on one card: K5's
+    sm90 kernel where it holds ``flash_attention_sm90.cu``
+    (:func:`_ab_k5`), K3 and K4 where it holds ``pinn_mlp_fwd.cu`` and
+    ``pinn_mlp_bwd.cu`` (:func:`_ab_k3_k4`)."""
+    ran = False
+    if os.path.exists(os.path.join(other, "flash_attention_sm90.cu")):
+        _ab_k5(dev, other)
+        ran = True
+    if all(os.path.exists(os.path.join(other, f"pinn_mlp_{d}.cu"))
+           for d in ("fwd", "bwd")):
+        _ab_k3_k4(dev, other, m_main)
+        ran = True
+    check(ran, f"--ab {other}: no kernel source of another revision there")
+
+
+def _ab_k5(dev, other: str) -> None:
+    """K5's sm90 kernel of this checkout against the one built from
+    ``other``'s ``flash_attention_sm90.cu`` (the same C interface): at
+    each K5_AB shape both held against the plain version, then timed in
+    turns (other, this, this, other, CUDA graphs of 20 launches), beside
+    SDPA, the bound and the card's name and power limit."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import native
+
+    stem = "flash_attention_sm90"
+    built = native.build([os.path.join(other, stem + ".cu")])[stem]
+    rows = _ptxas_report(built["log"], "flash_fwd_sm90_kernel")
+    emit({"ab_build": {"source": os.path.join(other, stem + ".cu"),
+                       "ptxas": {k: {"registers": r, "spill_bytes": sp}
+                                 for k, r, sp in rows}}})
+    libs = {"this": FA._library(stem),
+            "other": FA.bind(ctypes.CDLL(built["path"]), stem)}
+    this_library = FA._library
+    smi = _smi()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    S = 4096
+    try:
+        for name, H, Hk, dh, dv in K5_AB:
+            q, k, v = _qkv(gen, 1, S, S, H, Hk, dh, torch.bfloat16, False,
+                           dev, dv=dv)
+            want = FA.flash_attention_plain(q, k, v, causal=True)
+            times = {"other": [], "this": []}
+            for side in ("other", "this", "this", "other"):
+                FA._library = (lambda st, lib=libs[side]: lib
+                               if st == stem else this_library(st))
+                fn = lambda: FA._launch(q, k, v, True, route="sm90")
+                before = dict(FA.instances)
+                err = _allclose(fn(), want, FA_TOL["bfloat16"])
+                ran = [n for n in FA.instances
+                       if FA.instances[n] != before[n]]
+                check(ran == [_sm90_instance(dh, dv)],
+                      f"{side} ran the instances {ran}")
+                times[side].append(_graph_ms(fn, 20))
+            FA._library = this_library
+            emit({"ab": {"kernel": stem, "instance": ran[0],
+                         "shape": f"B=1 S=T={S} H={H} Hk={Hk} dh={dh} "
+                                  f"dv={dv} bf16 causal ({name})",
+                         "other_ms": times["other"],
+                         "this_ms": times["this"], "max_abs_err": err,
+                         "sdpa_ms": _graph_ms(lambda: _sdpa(q, k, v), 20),
+                         "bound_ms": fa_bound(1, S, H, Hk, dh, dv=dv)[0],
+                         "card": smi}})
+            del q, k, v, want
+            torch.cuda.empty_cache()
+    finally:
+        FA._library = this_library
+
+
+def _ab_k3_k4(dev, other: str, m_main: int) -> None:
     """K3 and K4 of this checkout against those built from the sources in
     the directory ``other`` (``pinn_mlp_fwd.cu`` and ``pinn_mlp_bwd.cu`` of
     another revision, with the same C interface), in one process on one
@@ -2432,7 +2560,7 @@ def lm_sweep(dev) -> dict:
     from repro_torch.kernels import wkv6 as WK
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst = {"float32": 0.0, "bfloat16": 0.0, "short": 0.0}
     cases = []
     for H, Hk in ((32, 8), (8, 8), (4, 1)):
         for dh in (64, 128, 100):
@@ -2443,22 +2571,22 @@ def lm_sweep(dev) -> dict:
                            (333, 200)) for c in (True, False)]
 
     def one(q, k, v, causal, dname):
-        """One K5 case: exactly one wrapper call on the device kernel of
-        its dtype (and, for bf16, the producer its strides allow and the
-        instance its widths ask for), the output with v's width in q's
-        layout (bf16 with dv < dh: dense in q's order of dimensions),
-        within FA_TOL of the plain version."""
+        """One K5 case: exactly one wrapper call on the device kernel its
+        dtype and query length ask for (bf16: the short kernel up to
+        S_SHORT queries, else the sm90 kernel with the producer its
+        strides allow and the instance its widths ask for), the output
+        with v's width in q's layout (bf16 with dv < dh: dense in q's
+        order of dimensions), within FA_TOL of the plain version."""
         before = {**FA.launches, **FA.producers, **FA.instances}
         got = FA.flash_attention(q, k, v, causal=causal)
         want = FA.flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
         after = {**FA.launches, **FA.producers, **FA.instances}
-        kern = ("flash_attention_sm90" if dname == "bfloat16"
-                else "flash_attention_f32")
+        kern = _k5_kernel(q.dtype, q.shape[1])
         ran = {n for n in after if after[n] != before[n]}
         want_ran = {"flash_attention", kern}
         dh, dv = q.shape[-1], v.shape[-1]
-        if dname == "bfloat16":   # TMA where dh and dv are multiples of 8
+        if kern == "flash_attention_sm90":   # TMA where dh, dv are x 8
             want_ran.add("tma" if dh % 8 == 0 and dv % 8 == 0 else "loads")
             want_ran.add(_sm90_instance(dh, dv))
         check(ran == want_ran, f"K5 {dname} dh{dh} dv{dv} launched {ran}")
@@ -2470,7 +2598,8 @@ def lm_sweep(dev) -> dict:
         check(got.shape == q.shape[:3] + v.shape[3:] and layout,
               "output layout")
         err = _allclose(got, want, FA_TOL[dname])
-        worst[dname] = max(worst[dname], err)
+        route = "short" if kern == "flash_attention_short" else dname
+        worst[route] = max(worst[route], err)
 
     n_fa = 0
     for H, Hk, dh, S, T, causal in cases:
@@ -2519,9 +2648,44 @@ def lm_sweep(dev) -> dict:
                       getattr(torch, dname), False, dev), causal, dname)
             n_encdec += 1
         print(f"K5 {ENCDEC} {role}: B{B} S{S} T{T} causal={causal} ok")
-    emit({"k5_sweep_cases": n_fa + n_mla + n_moe + n_path + n_encdec,
-          "k5_mla_cases": n_mla, "k5_moe_cases": n_moe,
+    # the short route: S up to S_SHORT (and one past it, the sm90
+    # kernel), one to 4096 keys (split over blocks where T is long), GQA,
+    # head widths 64 / 100 / 128 and MLA's 96 over 64, causal both ways;
+    # then the short kernel at more queries (row tiles, the causal mask
+    # per row) through the wrapper's launch with the route forced
+    n_short = 0
+    for S in sorted({1, 2, FA.S_SHORT, FA.S_SHORT + 1}):
+        for T in (1, 8, 1023, 4096):
+            for dh, dv in ((64, 64), (100, 100), (128, 128), (96, 64)):
+                for causal in (False, True):
+                    for heads_first in (False, True):
+                        one(*_qkv(gen, 2, S, T, 32, 8, dh, torch.bfloat16,
+                                  heads_first, dev, dv=dv), causal,
+                            "bfloat16")
+                        n_short += 1
+        print(f"K5 short route S{S} ({_k5_kernel(torch.bfloat16, S)}) ok")
+    n_forced = 0
+    for S in (2, 5, 16, 64):
+        for T in (8, 1023):
+            for dh, dv in ((64, 64), (100, 100), (128, 128), (96, 64)):
+                for causal in (False, True):
+                    q, k, v = _qkv(gen, 2, S, T, 32, 8, dh, torch.bfloat16,
+                                   False, dev, dv=dv)
+                    before = FA.launches["flash_attention_short"]
+                    got = FA._launch(q, k, v, causal, route="short")
+                    want = FA.flash_attention_plain(q, k, v, causal=causal)
+                    torch.cuda.synchronize()
+                    check(FA.launches["flash_attention_short"] == before + 1,
+                          "the forced short route launched no short kernel")
+                    worst["short"] = max(worst["short"], _allclose(
+                        got, want, FA_TOL["bfloat16"]))
+                    n_forced += 1
+    print(f"K5 short kernel forced at S 2-64: {n_forced} ok")
+    emit({"k5_sweep_cases": n_fa + n_mla + n_moe + n_path + n_encdec
+          + n_short + n_forced, "k5_mla_cases": n_mla, "k5_moe_cases": n_moe,
           "k5_vlm_hybrid_cases": n_path, "k5_encdec_cases": n_encdec,
+          "k5_short_route_cases": n_short,
+          "k5_short_forced_cases": n_forced, "s_short": FA.S_SHORT,
           "tol": FA_TOL, "max_abs_err": dict(worst)})
 
     # K6's plain version in float64 on the same (cast) inputs: the
@@ -2554,7 +2718,18 @@ def lm_sweep(dev) -> dict:
     emit({"k6_sweep_cases": n_wkv, "tol": WKV_TOL, "max_abs_err": wworst,
           "oracle": "wkv6_plain in float64",
           "float32_plain_max_abs_err": pworst})
-    return {"flash_attention": max(worst.values()), "wkv6": wworst}
+    return {"flash_attention": max(worst["float32"], worst["bfloat16"]),
+            "flash_attention_short": worst["short"], "wkv6": wworst}
+
+
+def _k5_kernel(dtype, S) -> str:
+    """The device kernel's counter a K5 call of ``dtype`` with S queries
+    must launch (``FA.kernel_route``: bf16 up to S_SHORT queries on the
+    short kernel)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    return {"short": "flash_attention_short", "sm90": "flash_attention_sm90",
+            "f32": "flash_attention_f32"}[FA.kernel_route(dtype, S)]
 
 
 def _sm90_instance(dh, dv) -> str:
@@ -2727,16 +2902,20 @@ def lm_timing(dev) -> dict:
         q, k, v = _qkv(gen, B, S, T, H, Hk, dh, torch.bfloat16, False, dev)
         kern = lambda: FA.flash_attention(q, k, v, causal=causal)
         lib = lambda: _sdpa(q, k, v, causal)
+        # a few-microsecond call: more launches a graph, so that the
+        # graph's own launch is a small part of each
+        reps = 100 if S * T <= 4096 else 20
         sdpa_err = float((lib().float() - kern().float()).abs().max())
         bms, by, nbytes, flops = fa_bound(B, S, H, Hk, dh, T=T,
                                           causal=causal)
         row = {"kernel": "flash_attention", "role": role,
+               "route": _k5_kernel(torch.bfloat16, S),
                "shape": f"B={B} S={S} T={T} H={H} Hk={Hk} dh={dh} bf16 "
                         f"{'causal' if causal else 'non-causal'} ({ENCDEC})",
-               "ms": _graph_ms(kern, 20),
+               "ms": _graph_ms(kern, reps),
                "plain_ms": _events_ms(lambda: FA.flash_attention_plain(
                    q, k, v, causal=causal), 3),
-               "library_ms": _graph_ms(lib, 20), "bound_ms": bms,
+               "library_ms": _graph_ms(lib, reps), "bound_ms": bms,
                "bound_by": by, "bytes": nbytes, "flops": flops,
                "sdpa_max_abs_diff": sdpa_err}
         row["tflops"] = flops / row["ms"] * 1e-9
@@ -2744,6 +2923,7 @@ def lm_timing(dev) -> dict:
         emit({"timing": row})
         del q, k, v
     torch.cuda.empty_cache()
+    out.update(_k5_short_timing(gen, dev))
     B, T, H, P = 1, 4096, 40, 64
     args = _rkvwu(gen, B, T, H, P, "near1", dev)
     bms, by, nbytes, flops = wkv_bound(B, T, H, P)
@@ -2761,6 +2941,71 @@ def lm_timing(dev) -> dict:
     out[("wkv6", T)] = row
     emit({"timing": row})
     del args
+    torch.cuda.empty_cache()
+    return out
+
+
+def _k5_short_timing(gen, dev) -> dict:
+    """K5's short route: the decode call over a long cross cache
+    (K5_DECODE_LONG) beside its plain version, SDPA and its bound, and
+    the crossover table that sets S_SHORT: the short kernel against the
+    sm90 kernel (the wrapper's launch with the route forced) and SDPA at
+    K5_CROSS_S queries over K5_CROSS_T keys, each time beside the card's
+    name and power limit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+
+    smi = _smi()
+    cfg = get_config(ENCDEC)
+    H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    B, S, T = K5_DECODE_LONG
+    q, k, v = _qkv(gen, B, S, T, H, Hk, dh, torch.bfloat16, False, dev)
+    kern = lambda: FA.flash_attention(q, k, v, causal=False)
+    lib = lambda: _sdpa(q, k, v, False)
+    sdpa_err = float((lib().float() - kern().float()).abs().max())
+    bms, by, nbytes, flops = fa_bound(B, S, H, Hk, dh, T=T, causal=False)
+    role = f"cross-attention, decode over {T} frames"
+    row = {"kernel": "flash_attention", "role": role,
+           "route": _k5_kernel(torch.bfloat16, S),
+           "plan": list(FA.short_plan(B, S, T, H, Hk, False,
+                                      FA._n_sm(dev.index or 0))),
+           "shape": f"B={B} S={S} T={T} H={H} Hk={Hk} dh={dh} bf16 "
+                    f"non-causal ({ENCDEC})",
+           "ms": _graph_ms(kern, 50),
+           "sm90_ms": _graph_ms(lambda: FA._launch(q, k, v, False,
+                                                   route="sm90"), 50),
+           "plain_ms": _events_ms(lambda: FA.flash_attention_plain(
+               q, k, v, causal=False), 3),
+           "library_ms": _graph_ms(lib, 50), "bound_ms": bms,
+           "bound_by": by, "bytes": nbytes, "flops": flops,
+           "sdpa_max_abs_diff": sdpa_err, "card": smi}
+    emit({"timing": row})
+    out = {("flash_attention_encdec", role): row}
+    del q, k, v
+    rows = []
+    for heads, (B, H, Hk, dh) in K5_CROSS_HEADS.items():
+        for T in K5_CROSS_T:
+            for S in K5_CROSS_S:
+                q, k, v = _qkv(gen, B, S, T, H, Hk, dh, torch.bfloat16,
+                               False, dev)
+                run = lambda r: lambda: FA._launch(q, k, v, False, route=r)
+                rows.append({
+                    "heads": heads, "B": B, "S": S, "T": T,
+                    "route": _k5_kernel(torch.bfloat16, S),
+                    "short_ms": _graph_ms(run("short"), 50),
+                    "sm90_ms": _graph_ms(run("sm90"), 50),
+                    "sdpa_ms": _graph_ms(lambda: _sdpa(q, k, v, False), 50),
+                    "bound_ms": fa_bound(B, S, H, Hk, dh, T=T,
+                                         causal=False)[0]})
+                del q, k, v
+    # the longest S of the table up to which the short kernel is the
+    # faster of the two in every row
+    loses = [r["S"] for r in rows if r["short_ms"] > r["sm90_ms"]]
+    cross = max((S for S in K5_CROSS_S if all(S < w for w in loses)),
+                default=0)
+    emit({"k5_crossover": {"rows": rows, "s_short": FA.S_SHORT,
+                           "short_faster_up_to_s": cross, "card": smi}})
     torch.cuda.empty_cache()
     return out
 
@@ -3243,51 +3488,75 @@ def llm_phase(dev) -> dict:
 def llm_serve_phase(dev) -> dict:
     """``launch.serve.main`` on the card at full width and depth, each run
     counted: the encoder-decoder's frames encoded once (K5 a layer) and
-    K5 for the cross-attention in each of its 31 decode steps; no kernel
-    in any other family's decode.  Returns the K5 launches of a serving
-    run by model."""
+    K5 for the cross-attention in each of its 31 decode steps, each call on
+    the device kernel its query length asks for (a decode step's one query
+    on the short kernel, the encoder's 8 frames past S_SHORT on the sm90
+    kernel); no kernel in any other family's decode.  The encoder-decoder is served once more with every
+    bf16 K5 call sent to the sm90 kernel (S_SHORT set to 0 for that run),
+    its tokens/s beside the short route's.  Returns the launches of a
+    serving run by model and device kernel."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import serve
 
     smi = _smi()
     B, P, G = 4, 16, 16
     argv = ["--no-reduced", "--batch", str(B), "--prompt-len", str(P),
             "--gen", str(G)]
+
+    def run(name, want):
+        buf = io.StringIO()
+        _reset_lm_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(["--arch", name] + argv)
+        secs = time.perf_counter() - t0
+        counts = {k: v for k, v in _lm_counts().items() if v}
+        check(counts == want, f"serve {name}: counted {counts}, want {want}")
+        report = json.loads(buf.getvalue().strip().splitlines()[-1])["serve"]
+        check(rc == 0, f"serve {name} exited {rc}")
+        check(report["shape"] == [4, 32] and not report["reduced"],
+              f"serve {name}: {report}")
+        check(report["device"].startswith("cuda"), f"serve on {report}")
+        torch.cuda.empty_cache()
+        return secs, report
+
     served = {}
     for name in LLM:
         if name in LLM_LAYERS:   # cut in depth: not served
             continue
         cfg = get_config(name)
-        want = (cfg.n_layers if cfg.family == "encdec" else 0) + \
-            (P + G - 1) * _decode_calls(cfg)
-        runs = []
-        for _ in range(2):   # the first one pays the card's first-use costs
-            buf = io.StringIO()
-            _reset_lm_counts()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                rc = serve.main(["--arch", name] + argv)
-            secs = time.perf_counter() - t0
-            counts = {k: v for k, v in _lm_counts().items() if v}
-            check(counts == ({"flash_attention": want,
-                              "flash_attention_sm90": want} if want
-                             else {}),
-                  f"serve {name}: counted {counts}, want {want} K5")
-            report = json.loads(
-                buf.getvalue().strip().splitlines()[-1])["serve"]
-            check(rc == 0, f"serve {name} exited {rc}")
-            check(report["shape"] == [4, 32] and not report["reduced"],
-                  f"serve {name}: {report}")
-            check(report["device"].startswith("cuda"), f"serve on {report}")
-            runs.append((secs, report))
-            torch.cuda.empty_cache()
+        # (query length, launches) of a run's K5 calls: the encoder over
+        # max_len // enc_ratio frames, one query a decode step
+        calls = ([(max(1, (P + G) // cfg.enc_ratio), cfg.n_layers)]
+                 if cfg.family == "encdec" else []) + \
+            [(1, (P + G - 1) * _decode_calls(cfg))]
+        want = {}
+        for S, n in calls:
+            for kname in ("flash_attention",
+                          _k5_kernel(torch.bfloat16, S)):
+                if n:
+                    want[kname] = want.get(kname, 0) + n
+        # the first run pays the card's first-use costs
+        runs = [run(name, want) for _ in range(2)]
         served[name] = want
-        emit({"llm_serve": {
-            "arch": name, "argv": argv, "seconds": [r[0] for r in runs],
-            "tokens_per_s": [r[1]["tokens_per_s"] for r in runs],
-            "new_tokens": runs[-1][1]["new_tokens"], "launches": counts,
-            "card": smi}})
+        row = {"arch": name, "argv": argv, "seconds": [r[0] for r in runs],
+               "tokens_per_s": [r[1]["tokens_per_s"] for r in runs],
+               "new_tokens": runs[-1][1]["new_tokens"], "launches": want,
+               "card": smi}
+        if "flash_attention_short" in want:
+            # the same run with every K5 call on the sm90 kernel
+            s_short, FA.S_SHORT = FA.S_SHORT, 0
+            try:
+                n = want["flash_attention"]
+                secs, report = run(name, {"flash_attention": n,
+                                          "flash_attention_sm90": n})
+            finally:
+                FA.S_SHORT = s_short
+            row["sm90_route"] = {"seconds": secs,
+                                 "tokens_per_s": report["tokens_per_s"]}
+        emit({"llm_serve": row})
     return served
 
 
@@ -4793,9 +5062,11 @@ def main(argv=None) -> int:
                              "ep"),
                     help="only the build and this phase (no result line)")
     ap.add_argument("--ab", default=None, metavar="DIR",
-                    help="only time this checkout's K3/K4 against the "
-                         "pinn_mlp_fwd.cu / pinn_mlp_bwd.cu in DIR (another "
-                         "revision's), in turns; no other phase runs")
+                    help="only time this checkout's kernels against another "
+                         "revision's sources in DIR, in turns: K5's sm90 "
+                         "kernel against DIR/flash_attention_sm90.cu, K3/K4 "
+                         "against DIR/pinn_mlp_fwd.cu and pinn_mlp_bwd.cu; "
+                         "no other phase runs")
     args = ap.parse_args(argv)
 
     import torch
@@ -4886,7 +5157,9 @@ def main(argv=None) -> int:
     for k, v in llm["launches"].items():
         launches[k] = launches.get(k, 0) + v
     served = phase("llm serve", llm_serve_phase, dev)
-    launches["flash_attention"] += 2 * sum(served.values())   # two runs each
+    for want in served.values():   # two counted runs each
+        for k, v in want.items():
+            launches[k] = launches.get(k, 0) + 2 * v
     lm_train = phase("lm train", lm_train_phase, dev)
     for k, v in lm_train["launches"].items():
         launches[k] = launches.get(k, 0) + v
@@ -4986,6 +5259,24 @@ def main(argv=None) -> int:
                     "flash_attention_encdec", role)].items()
                     if k not in ("bytes", "flops")}, **per_role[role]}
                     for role in ENCDEC_K5}}
+    # K5's short route, timed at its main-path call (seamless's decode
+    # step: one query over 8 frames) and over 1024 frames
+    t = times[("flash_attention_encdec", "cross-attention, decode")]
+    t_long = times[("flash_attention_encdec", "cross-attention, decode "
+                    f"over {K5_DECODE_LONG[2]} frames")]
+    check(t["route"] == t_long["route"] == "flash_attention_short",
+          f"the decode calls timed on {t['route']}, {t_long['route']}")
+    kernels.append({
+        "name": "flash_attention_short", "route": "cuda",
+        "source": SOURCES["flash_attention_short"],
+        "replaces": REPLACES["flash_attention_short"],
+        "launches": launches.get("flash_attention_short", 0),
+        "max_abs_err": worst["flash_attention_short"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "shape": t["shape"],
+        "long_cache": {k: v for k, v in t_long.items()
+                       if k not in ("bytes", "flops")}})
     smi = _smi()
     if args.out:
         with open(args.out, "w") as f:

@@ -4,7 +4,9 @@
 // Replaces the reference package's Pallas TPU kernel
 //   K5  src/repro/kernels/flash_attention.py::_kernel  (launched by
 //       flash_attention_pallas, wrapped by kernels/ops.py::flash_attention)
-// for bf16 q, k and v; float32 inputs keep the CUDA-core kernel of
+// for bf16 q, k and v with more than the wrapper's S_SHORT queries (fewer
+// go to csrc/flash_attention_short.cu); float32 inputs keep the CUDA-core
+// kernel of
 // csrc/flash_attention.cu (a TF32 product would not hold the float32 bounds
 // that path is checked against: 2e-5 over the kernel sweep, 1e-4 of max
 // |logit| over a full float32 prefill).
@@ -33,8 +35,8 @@
 // Design.  Grid = (query tiles of kBQ = 128 rows, H, B), query tiles
 // heaviest first (reversed blockIdx.x); 384 threads in three warpgroups:
 //   * warpgroup 0, the producer (setmaxnreg down to 40 registers), loads Q
-//     once and then each kv tile's K and V (kBK = 128 rows at DK <= 96, 64
-//     at DK = 128) into a ring of kStages stages, each with a full and an
+//     once and then each kv tile's K and V (kBK = 128 rows) into a ring
+//     of kStages stages (4, 3 at DK = 128), each with a full and an
 //     empty mbarrier.  Query head h reads kv head h // G through the
 //     coordinates it loads, never a copy.  Every tile lands in shared
 //     memory with the 128-byte swizzle, 64 bf16 columns per box (Q and K
@@ -62,8 +64,8 @@
 //     writes the dv columns of O / max(l, 1e-30) through the output
 //     strides.
 // A consumer thread holds kBK / 2 score, DV / 2 output and kBK / 4 packed P
-// registers: 64, 32 and 32 at (64, 64) and (96, 64) alike, 32, 64 and 16 at
-// (128, 128).
+// registers: 64, 32 and 32 at (64, 64) and (96, 64) alike, 64, 64 and 32
+// at (128, 128).
 // Two producers, chosen per call (template flag kTMA):
 //   * TMA (cp.async.bulk.tensor, 4-D maps over (width, rows, heads,
 //     batch), the width dh for q and k, dv for v) where the tensor maps can
@@ -83,14 +85,20 @@
 // What bounds it on this card.  2 (dh + dv) FLOP per visible (query, key)
 // pair and head, about 1,600 FLOP per byte of q, k, v and o at S = 4096, so
 // the bf16 tensor-core rate (989 TFLOP/s) bounds it (69.5 us for one
-// llama3.2-1b layer at S = T = 4096, 108.6 us for one minicpm3-4b layer).  The consumers of this first design run each
-// tile's two products and its softmax in sequence (wgmma waits before the
-// softmax), so a warpgroup's softmax overlaps only the other warpgroup's
-// products.
+// llama3.2-1b layer at S = T = 4096, 108.6 us for one minicpm3-4b layer,
+// 139.0 us for one phi3.5-moe layer).  Each consumer runs a tile's two
+// products and its softmax in sequence (wgmma waits before the softmax),
+// so a warpgroup's softmax overlaps only the other warpgroup's products.
+// At (128, 128) kv tiles of 128 (from 64) halve the tiles, their softmaxes
+// and barriers, and widen the score product to n128: 13 % faster on the
+// H100.  Two orders of the consumers by named barriers (FlashAttention-3's
+// ping-pong: their Q K^T in turns, or each turn also carrying the previous
+// tile's P V) measured slower than no order at all, and are not used.
 //
 // C interface (bound with ctypes): flash_attention_sm90_fwd(...) launches on
 // the given stream, does not synchronise, reports the producer and the
-// instance it chose and returns cudaGetLastError().
+// instance it chose and returns cudaGetLastError().  The host sets each
+// instantiation's shared-memory limit once per device.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -105,19 +113,21 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 constexpr int kSmemMax = 232448;  // a block's shared memory on sm_90
+constexpr int kMaxDevices = 64;
 
 template <int DK, int DV>
 struct Cfg {
   static constexpr int kKBoxes = (DK + 63) / 64;      // 64-column boxes: Q, K
   static constexpr int kVBoxes = (DV + 63) / 64;      // V
-  static constexpr int kBK = DK == 128 ? 64 : 128;    // kv rows per tile
+  static constexpr int kBK = 128;                     // kv rows per tile
   static constexpr int kStages = DK == 128 ? 3 : 4;   // ring depth
   static constexpr int kQBytes = kBQ * kKBoxes * 128;
   static constexpr int kKBytes = kBK * kKBoxes * 128;  // one K tile
   static constexpr int kVBytes = kBK * kVBoxes * 128;  // one V tile
   // + 1024 to align the swizzled tiles; above half the SM's shared memory,
   // so one block per SM (the register split of setmaxnreg assumes it);
-  // (96, 64): 32 KB of Q + 4 x (32 + 16) KB of K and V + 1 KB = 230,400
+  // (96, 64): 32 KB of Q + 4 x (32 + 16) KB of K and V + 1 KB = 230,400;
+  // (128, 128): 32 KB of Q + 3 x (32 + 32) KB + 1 KB = 230,400
   static constexpr int kSmem =
       kQBytes + kStages * (kKBytes + kVBytes) + 1024;
   static_assert(DK % 16 == 0 && DV % 8 == 0 && DV <= DK, "instance");
@@ -501,8 +511,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int ks = 0; ks < DK / 16; ++ks) {
           const uint32_t col = (ks & 3) * 32;
           mma_ss<kBK>(sc,
-                      make_desc(q_addr + (ks >> 2) * kBQ * 128 + col, 16, 1024),
-                      make_desc(k_addr + (ks >> 2) * kBK * 128 + col, 16, 1024),
+                      make_desc(q_addr + (ks >> 2) * kBQ * 128 + col, 16,
+                                1024),
+                      make_desc(k_addr + (ks >> 2) * kBK * 128 + col, 16,
+                                1024),
                       ks > 0);
         }
         wg_commit();
@@ -666,9 +678,19 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    cudaStream_t stream) {
   auto kern = flash_fwd_sm90_kernel<DK, DV, kTMA>;
   constexpr int smem = Cfg<DK, DV>::kSmem;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // the shared-memory limit is set once per instantiation and device, not
+  // on every launch
+  static bool ready[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return e;
+    ready[dev] = true;
+  }
   const dim3 grid((p.S + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();

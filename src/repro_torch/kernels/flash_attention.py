@@ -5,9 +5,12 @@ Counterpart of the reference package's ``kernels/flash_attention.py``
 Pallas kernel ``_kernel`` (K5), the prefill hot spot of the dense models;
 the encoder-decoder also sends it its non-causal calls (the encoder's S ==
 T, the cross-attention's S queries over T frames).
-Two device kernels, chosen by dtype: bf16 goes to
-``csrc/flash_attention_sm90.cu`` (wgmma on the tensor cores, fed by TMA or,
-where TMA cannot take the strides, by element loads), float32 to
+Three device kernels, chosen by dtype and query length: a bf16 call with
+S <= :data:`S_SHORT` goes to ``csrc/flash_attention_short.cu`` (a few
+query rows a block, float32 on the CUDA cores, the keys split over blocks
+where T is long: a decode step's cross-attention), a longer one to
+``csrc/flash_attention_sm90.cu`` (wgmma on the tensor cores, fed by TMA
+or, where TMA cannot take the strides, by element loads), float32 to
 ``csrc/flash_attention.cu`` (float32 FMAs on the CUDA cores); their
 headers say what bounds them and how they are tiled.  This module holds
 
@@ -33,11 +36,15 @@ headers say what bounds them and how they are tiled.  This module holds
   reference has no backward kernel either: it differentiates its XLA
   attention.  Each recompute counts in ``recomputes`` (not in
   ``plain_calls``, which stays 0 on a card);
+* :func:`kernel_route` — the device kernel a call launches;
+* :func:`short_plan` — the short kernel's grid for a call: rows a block,
+  row tiles, key splits and keys a split;
 * ``launches``: ``flash_attention`` counts the wrapper's launches,
-  ``flash_attention_sm90`` / ``flash_attention_f32`` those of each device
-  kernel; ``producers`` counts the bf16 kernel's launches by how its tiles
-  went in (``tma`` or ``loads``), ``instances`` by the (q/k width, v
-  width) it was compiled for (``64x64``, ``96x64``, ``128x128``);
+  ``flash_attention_short`` / ``flash_attention_sm90`` /
+  ``flash_attention_f32`` those of each device kernel; ``producers``
+  counts the sm90 kernel's launches by how its tiles went in (``tma`` or
+  ``loads``), ``instances`` by the (q/k width, v width) it was compiled
+  for (``64x64``, ``96x64``, ``128x128``);
 * ``plain_calls``: the plain version's calls on CUDA tensors (prefill on a
   card leaves it at 0);
 * :func:`work` — the bytes and FLOPs the function needs for one call (the
@@ -53,8 +60,8 @@ dv) with H a multiple of Hk (query head h reads kv head h // (H / Hk)) and
 dv <= dh.  The kernels read any strides with a contiguous head dim, so (B,
 H, S, dh) tensors go in as ``transpose(1, 2)`` views
 (``ops.flash_attention``).  A v narrower than q and k (MLA: dh = 96, dv =
-64): the bf16 kernel reads it at its own width (MLA's shape has an
-instance of its own, q/k 96 over v 64) and writes a dv-wide output; the
+64): the bf16 kernels read it at its own width (MLA's shape has an sm90
+instance of its own, q/k 96 over v 64) and write a dv-wide output; the
 float32 kernel takes v as wide as q and k, so v goes to it zero-padded to
 dh and its output is sliced back to dv (the padded columns are sums of
 zeros, so the result is exact).  The scale stays 1/sqrt(dh).
@@ -67,11 +74,11 @@ S)``); the two agree only when S == T, which is the only causal case the
 models run.
 
 Dtypes: float32 and bf16 (q, k, v alike).  Scores and softmax are float32
-and the output is cast back to the input's dtype.  The float32 kernel's
-products are float32; the bf16 kernel's take P rounded to bf16 into P V
-(as every tensor-core flash attention), which moves its output from the
-plain version's by at most 2^-8 max |v| (bf16's unit roundoff) before
-the output's rounding.
+and the output is cast back to the input's dtype.  The float32 and the
+short kernel's products are float32; the sm90 kernel's take P rounded to
+bf16 into P V (as every tensor-core flash attention), which moves its
+output from the plain version's by at most 2^-8 max |v| (bf16's unit
+roundoff) before the output's rounding.
 """
 from __future__ import annotations
 
@@ -86,9 +93,16 @@ from repro_torch.kernels import native
 NEG_INF = -1e30   # masked score (the TPU kernel's NEG_INF; exp stays finite)
 DH_MAX = 128      # widest head the kernel takes
 _DTYPES = (torch.float32, torch.bfloat16)
+# bf16 calls with at most this many queries take the short kernel: its
+# crossover against the sm90 kernel on the H100 (PERF.md, chip_smoke.py's
+# k5_crossover): faster at one query over 8 and over 1024 keys, at 16/16
+# heads of 64 and 32/8 of 128; slower at two queries over 1024 keys
+S_SHORT = 1
+SHORT_ROWS = (1, 2)      # the short kernel's rows a block (its instances)
+SHORT_SPLIT = 64         # the fewest keys of a split of the short kernel
 
-launches = {"flash_attention": 0, "flash_attention_sm90": 0,
-            "flash_attention_f32": 0}
+launches = {"flash_attention": 0, "flash_attention_short": 0,
+            "flash_attention_sm90": 0, "flash_attention_f32": 0}
 producers = {"tma": 0, "loads": 0}
 instances = {"64x64": 0, "96x64": 0, "128x128": 0}
 plain_calls = {"flash_attention_plain": 0}
@@ -134,6 +148,35 @@ def work(B, S, H, Hk, dh, *, T=None, dv=None, causal=True,
     else:
         pairs = T * (T + 1) // 2 + (S - T) * T
     return nbytes, 2 * (dh + dv) * B * H * pairs
+
+
+def kernel_route(dtype, S) -> str:
+    """The device kernel a call of ``dtype`` with S queries launches:
+    ``"short"`` (bf16, S <= :data:`S_SHORT`), ``"sm90"`` (bf16) or
+    ``"f32"``."""
+    if dtype == torch.bfloat16:
+        return "short" if S <= S_SHORT else "sm90"
+    return "f32"
+
+
+def short_plan(B, S, T, H, Hk, causal, n_sm) -> tuple[int, int, int, int]:
+    """The short kernel's grid for a call on a card of ``n_sm`` SMs: (rows
+    a block, row tiles, key splits, keys a split).  A block holds up to 2
+    of a kv head's G S query rows (the smallest of :data:`SHORT_ROWS` that
+    holds them all).  Without ``causal``, the keys are split, at least
+    :data:`SHORT_SPLIT` a split and a multiple of 64, until the grid has
+    about four blocks an SM; a causal call sees at most S keys and is never
+    split."""
+    R = (H // Hk) * S
+    rb = next((r for r in SHORT_ROWS if r >= R), SHORT_ROWS[-1])
+    n_rt = -(-R // rb)
+    n_split = 1
+    if not causal:
+        n_split = max(1, min(-(-T // SHORT_SPLIT),
+                             -(-4 * n_sm // (B * Hk * n_rt))))
+    per = -(-T // n_split)          # keys a split, up to a multiple of 64
+    per = -(-per // 64) * 64
+    return rb, n_rt, -(-T // per), per
 
 
 # ------------------------------------------------------------ plain versions
@@ -279,21 +322,52 @@ def flash_attention_train(q, k, v, *, causal=True, block_q=512):
 
 @functools.cache
 def _library(stem: str):
-    """The float32 kernel (``flash_attention``) or the bf16 one
-    (``flash_attention_sm90``, whose entry also reports its producer)."""
-    lib = native.load(stem)
+    """The float32 kernel (``flash_attention``) or a bf16 one
+    (``flash_attention_sm90``, whose entry also reports its producer and
+    instance; ``flash_attention_short``, whose entry takes its plan and
+    scratch)."""
+    return bind(native.load(stem), stem)
+
+
+def bind(lib, stem: str):
+    """(entry, error string) of a loaded K5 library, argument types set."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fwd = getattr(lib, f"{stem}_fwd")
     err = getattr(lib, f"{stem}_error_string")
-    # the bf16 entry also takes dv and reports (producer, DK, DV)
-    sm90 = stem == "flash_attention_sm90"
-    fwd.argtypes = ([p] * 4 + [ll] * 12 + [i] * (7 if sm90 else 6)
-                    + [ctypes.c_float] + [i]
-                    + ([ctypes.POINTER(i)] if sm90 else []) + [p])
+    # the bf16 entries also take dv; sm90's reports (producer, DK, DV),
+    # short's takes (rows a block, splits, keys a split) and its scratch
+    tail = {"flash_attention": [],
+            "flash_attention_sm90": [ctypes.POINTER(i)],
+            "flash_attention_short": [i] * 3 + [p] * 3}[stem]
+    fwd.argtypes = ([p] * 4 + [ll] * 12
+                    + [i] * (6 if stem == "flash_attention" else 7)
+                    + [ctypes.c_float] + [i] + tail + [p])
     fwd.restype = i
     err.argtypes = [i]
     err.restype = ctypes.c_char_p
     return fwd, err
+
+
+@functools.cache
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_TICKETS = {}   # device index -> int32 tickets, all 0 between calls
+
+
+def _tickets(device, n: int):
+    """The short kernel's split tickets: zeros kept per device (the last
+    block of each ticket sets it back to 0, and the port issues its calls
+    on one stream, in order), so a call launches no fill.  Under CUDA
+    graph capture a first buffer is not kept: it belongs to the graph's
+    pool."""
+    t = _TICKETS.get(device.index)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        if not torch.cuda.is_current_stream_capturing():
+            _TICKETS[device.index] = t
+    return t
 
 
 def _check(q, k, v):
@@ -329,11 +403,18 @@ def _check(q, k, v):
                                   "(prefill); it has no autograd")
 
 
-def _launch(q, k, v, causal):
+def _launch(q, k, v, causal, route=None):
+    """Check, allocate and launch; ``route`` (``"short"`` or ``"sm90"``,
+    bf16 only) overrides the choice by S, to time one kernel against the
+    other."""
     _check(q, k, v)
     B, S, H, dh = q.shape
     T, Hk, dv = k.shape[1], k.shape[2], v.shape[3]
     bf16 = q.dtype == torch.bfloat16
+    if route is None:
+        route = kernel_route(q.dtype, S)
+    elif route not in (("short", "sm90") if bf16 else ("f32",)):
+        raise ValueError(f"flash_attention: route {route!r} for {q.dtype}")
     if bf16:
         # v at its own width; o (B, S, H, dv) dense in q's dimension order
         # (empty_like keeps the order of a non-dense view), so a contiguous
@@ -356,24 +437,42 @@ def _launch(q, k, v, causal):
         meta_work["flops"] += flops
         meta_reads.update(t.untyped_storage()._cdata for t in (q, k, v))
         return o if o.shape[-1] == dv else o[..., :dv]
-    stem = "flash_attention_sm90" if bf16 else "flash_attention"
+    stem = {"short": "flash_attention_short", "sm90": "flash_attention_sm90",
+            "f32": "flash_attention"}[route]
     fwd, err = _library(stem)
-    chosen = (ctypes.c_int * 3)(-1, -1, -1)   # producer, DK, DV
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            *(t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)),
+            B, S, T, H, Hk, dh, *([dv] if bf16 else []),
+            1.0 / math.sqrt(dh), int(causal)]
+    chosen = (ctypes.c_int * 3)(-1, -1, -1)   # sm90: producer, DK, DV
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 *(t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)),
-                 B, S, T, H, Hk, dh, *([dv] if bf16 else []),
-                 1.0 / math.sqrt(dh), int(causal),
-                 *([chosen] if bf16 else []), stream)
+        if route == "short":
+            rb, n_rt, n_split, per = short_plan(
+                B, S, T, H, Hk, causal, _n_sm(q.device.index))
+            scratch = [None] * 3
+            if n_split > 1:   # each split's float32 (o, m, l) and tickets
+                rows = B * Hk * n_rt * n_split * rb
+                part_o = torch.empty(rows * dv, dtype=torch.float32,
+                                     device=q.device)
+                part_ml = torch.empty(rows * 2, dtype=torch.float32,
+                                      device=q.device)
+                tickets = _tickets(q.device, B * Hk * n_rt)
+                scratch = [t.data_ptr() for t in (part_o, part_ml, tickets)]
+            args += [rb, n_split, per, *scratch]
+        elif route == "sm90":
+            args.append(chosen)
+        rc = fwd(*args, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed ({rc}: "
                            f"{err(rc).decode()})")
     launches["flash_attention"] += 1
-    if bf16:
+    if route == "sm90":
         launches["flash_attention_sm90"] += 1
         producers["tma" if chosen[0] == 1 else "loads"] += 1
         instances[f"{chosen[1]}x{chosen[2]}"] += 1
+    elif route == "short":
+        launches["flash_attention_short"] += 1
     else:
         launches["flash_attention_f32"] += 1
     return o if o.shape[-1] == dv else o[..., :dv]

@@ -535,14 +535,25 @@ def _device_kernels(fn):
     return out, [n for n in names if "spin_kernel" not in n]
 
 
-def _check_mla_launch(dtype, names, instance="96x64", producer="tma"):
-    """One K5 launch on the kernel of its dtype.  bf16: the instance given,
-    and no other device work inside the wrapper (no pad of v); float32:
-    one launch of its kernel beside the pad of v to dh."""
-    kern = "flash_attention_sm90" if dtype == torch.bfloat16 else \
-        "flash_attention_f32"
+_K5_KERNEL = {"short": "flash_attention_short", "sm90": "flash_attention_sm90",
+              "f32": "flash_attention_f32"}
+
+
+def _check_mla_launch(dtype, names, instance="96x64", producer="tma", S=None):
+    """One K5 launch on the kernel of its dtype and query length.  bf16 on
+    the sm90 kernel: the instance given, and no other device work inside
+    the wrapper (no pad of v); bf16 on the short kernel (S <= S_SHORT):
+    its one launch and nothing else; float32: one launch of its kernel
+    beside the pad of v to dh."""
+    route = FA.kernel_route(dtype, S) if S is not None else \
+        FA.kernel_route(dtype, FA.S_SHORT + 1)
+    kern = _K5_KERNEL[route]
     assert FA.launches["flash_attention"] == FA.launches[kern] == 1
-    if dtype == torch.bfloat16:
+    if route == "short":
+        assert not any(FA.producers.values()) and \
+            not any(FA.instances.values())
+        assert len(names) == 1 and "flash_short_kernel" in names[0], names
+    elif dtype == torch.bfloat16:
         assert FA.producers[producer] == 1 and sum(FA.producers.values()) == 1
         assert FA.instances[instance] == 1 and \
             sum(FA.instances.values()) == 1
@@ -569,8 +580,9 @@ def _check_dv_layout(got, q):
 def test_flash_attention_mla_shape_on_card(dev, S, dtype, tol):
     """minicpm3-4b's attention: H = Hk = 40, a 96-wide q/k head over a
     64-wide v head, causal.  One wrapper call, one launch of the kernel of
-    its dtype (bf16: the (96, 64) instance by TMA, v read at its width and
-    nothing else launched; float32: v zero-padded to 96), a (B, S, H, 64)
+    its dtype and length (bf16: the (96, 64) instance by TMA, v read at its
+    width and nothing else launched, or the short kernel at S = 1;
+    float32: v zero-padded to 96), a (B, S, H, 64)
     output (bf16: contiguous like q), within K5's bound of the plain
     version."""
     q, k, _ = _qkv(dev, 1, S, S, 40, 40, 96, dtype, seed=S)
@@ -579,7 +591,7 @@ def test_flash_attention_mla_shape_on_card(dev, S, dtype, tol):
     FA.reset_launch_counts()
     got, names = _device_kernels(lambda: FA.flash_attention(q, k, v,
                                                             causal=True))
-    _check_mla_launch(dtype, names)
+    _check_mla_launch(dtype, names, S=S)
     want = FA.flash_attention_plain(q, k, v, causal=True)
     torch.cuda.synchronize()
     assert got.shape == v.shape[:3] + (64,)
@@ -647,16 +659,91 @@ def test_flash_attention_narrow_v_instances_on_card(dev, dh, dv, instance,
 def test_flash_attention_encdec_shapes_on_card(dev, B, S, T, causal, dtype,
                                                tol):
     """seamless-m4t-large-v2's K5 shapes (16/16 heads of 64): one launch
-    on the kernel of its dtype, within K5's bound of the plain version."""
+    on the kernel of its dtype and query length (bf16: the decode step's
+    one query on the short kernel, the rest on the sm90 kernel), within
+    K5's bound of the plain version."""
     q, k, v = _qkv(dev, B, S, T, 16, 16, 64, dtype, seed=S + T)
     FA.reset_launch_counts()
     got = FA.flash_attention(q, k, v, causal=causal)
     want = FA.flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    kern = "flash_attention_sm90" if dtype == torch.bfloat16 else \
-        "flash_attention_f32"
+    kern = _K5_KERNEL[FA.kernel_route(dtype, S)]
     assert FA.launches["flash_attention"] == FA.launches[kern] == 1
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dh,dv", [(64, 64), (100, 100), (128, 128),
+                                   (96, 64)])
+@pytest.mark.parametrize("T", [1, 8, 1023, 4096])
+@pytest.mark.parametrize("S", sorted({1, 2, 16, FA.S_SHORT, FA.S_SHORT + 1}))
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_short_route_on_card(dev, S, T, dh, dv, causal):
+    """bf16 calls of up to S_SHORT queries: one wrapper launch on the short
+    kernel (past S_SHORT: on the sm90 kernel), GQA 32/8, both layouts,
+    head widths 64, 100 (200-byte rows: element loads), 128 and MLA's 96
+    over 64, T up to 4096 (split over blocks where the call is not
+    causal), within K5's bf16 bound of the plain version; then the short
+    kernel at the same S through the wrapper's launch with the route
+    forced (2 and 16 queries: row tiles of 2, the causal mask per row)."""
+    kern = _K5_KERNEL[FA.kernel_route(torch.bfloat16, S)]
+    for heads_first in (False, True):
+        q, k, v = _qkv(dev, 2, S, T, 32, 8, dh, torch.bfloat16,
+                       seed=S * T + dh + causal, heads_first=heads_first)
+        v = v[..., :dv]
+        FA.reset_launch_counts()
+        got = FA.flash_attention(q, k, v, causal=causal)
+        want = FA.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert FA.launches["flash_attention"] == FA.launches[kern] == 1
+        assert sum(FA.launches.values()) == 2
+        assert got.shape == (2, S, 32, dv)
+        _check_dv_layout(got, q)
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                   atol=1e-2)
+        FA.reset_launch_counts()
+        got = FA._launch(q, k, v, causal, route="short")
+        torch.cuda.synchronize()
+        assert FA.launches["flash_attention_short"] == 1
+        _check_dv_layout(got, q)
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                   atol=1e-2)
+
+
+def test_flash_attention_short_merge_is_bitwise_repeatable(dev):
+    """seamless's decode call over 1024 frames: the keys split over
+    blocks, the last block in (by an integer ticket) merges the splits in
+    split order, so two launches give the same bits."""
+    q, k, v = _qkv(dev, 4, 1, 1024, 16, 16, 64, torch.bfloat16, seed=5)
+    assert FA.short_plan(4, 1, 1024, 16, 16, False,
+                         FA._n_sm(q.device.index))[2] > 1
+    FA.reset_launch_counts()
+    a = FA.flash_attention(q, k, v, causal=False)
+    b = FA.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert FA.launches["flash_attention_short"] == 2
+    assert torch.equal(a, b)
+    torch.testing.assert_close(
+        a.float(), FA.flash_attention_plain(q, k, v, causal=False).float(),
+        rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("Hk", [8, 32])
+@pytest.mark.parametrize("S,T", [(64, 128), (64, 200), (130, 256),
+                                 (130, 333), (130, 130), (64, 4096)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_128_instance_on_card(dev, S, T, Hk, causal):
+    """The (128, 128) instance (kv tiles of 128, the consumers' ping-pong)
+    through the sm90 route: T a multiple of 128 and not, a live and a dead
+    second consumer (S 130 and 64), GQA 32/8 and 32/32."""
+    q, k, v = _qkv(dev, 1, S, T, 32, Hk, 128, torch.bfloat16,
+                   seed=S + T + Hk + causal)
+    FA.reset_launch_counts()
+    got = FA._launch(q, k, v, causal, route="sm90")
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.instances["128x128"] == FA.launches["flash_attention_sm90"] == 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
 
 
 def test_reduced_encdec_on_card_matches_cpu(dev):

@@ -6,9 +6,9 @@ against the port's plain versions and the JAX package's Pallas kernels
 
 K5's twin repeats ``csrc/flash_attention_sm90.cu``'s loop at the instance
 the kernel picks for (dh, dv): 128-row query tiles in two 64-row halves, kv
-tiles of 128 rows (64 at the instance whose q/k width is 128: dh above 96,
-or above 64 with v wider than 64), v at its own width (MLA's 96 over 64 has
-an instance of its own), the walk stopping at the block's last visible tile
+tiles of 128 rows at every instance, v at its own width (MLA's 96 over 64
+has an instance of its own), the walk stopping at the block's last visible
+tile
 and a half skipping
 tiles wholly above its rows, the -1e30 mask only on tiles that cross the
 diagonal or the end of T (the twin checks that every other tile has
@@ -84,8 +84,7 @@ def _flash_sm90_twin(q, k, v, causal):
     B, S, H, dh = q.shape
     T, Hk, dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hk
-    dk, _ = _sm90_instance(dh, dv)
-    bq, bk = 128, (64 if dk == 128 else 128)
+    bq, bk = 128, 128
     sl2 = math.log2(math.e) / math.sqrt(dh)
     n_q, n_t = -(-S // bq), -(-T // bk)
     qf = F.pad(q.transpose(1, 2), (0, 0, 0, n_q * bq - S))
@@ -139,8 +138,13 @@ def _narrow(S, T, H, Hk, dh, dv, causal, what):
 @pytest.mark.parametrize("S,T,H,Hk,dh,causal", [
     (128, 128, 4, 2, 64, True),      # one query tile, one kv tile
     (300, 300, 4, 1, 64, True),      # ragged S = T, tiles of 128
-    (200, 200, 2, 2, 100, True),     # dh 100: padded to 128, kv tiles of 64
+    (200, 200, 2, 2, 100, True),     # dh 100: padded to 128
     (130, 130, 2, 1, 128, True),     # dh 128, a second query tile of 2 rows
+    # the (128, 128) instance: T not a multiple of 128, GQA 32/8
+    (300, 300, 32, 8, 128, True),
+    (200, 333, 32, 8, 128, True),
+    (333, 200, 32, 8, 128, False),
+    (64, 130, 32, 8, 128, True),     # one live half (the other past S)
     (70, 200, 4, 2, 64, True),       # S < T, top-left mask
     (200, 70, 4, 2, 64, True),       # S > T: the half past T's diagonal
     (150, 333, 2, 1, 32, False),     # not causal, ragged end of T
@@ -282,7 +286,8 @@ def test_wkv6_split_twin_vs_pallas(T, w):
 def test_launch_counters_name_every_device_kernel():
     """The wrappers count their calls and each device kernel's launches
     apart, and a reset clears all of them."""
-    assert set(FA.launches) == {"flash_attention", "flash_attention_sm90",
+    assert set(FA.launches) == {"flash_attention", "flash_attention_short",
+                                "flash_attention_sm90",
                                 "flash_attention_f32"}
     assert set(FA.producers) == {"tma", "loads"}
     assert set(FA.instances) == {
@@ -293,6 +298,7 @@ def test_launch_counters_name_every_device_kernel():
                                 "wkv6_out"}
     FA.producers["tma"] += 1
     FA.instances["96x64"] += 1
+    FA.launches["flash_attention_short"] += 1
     FA.reset_launch_counts()
     WK.reset_launch_counts()
     assert not any(FA.launches.values()) and not any(FA.producers.values())
