@@ -60,7 +60,6 @@ import numpy as np
 import torch
 
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from repro_torch.core import fused, halo, losses, nets
 from repro_torch.core.domain import Decomposition, Topology
@@ -651,7 +650,7 @@ class DataParallelTrainer:
         keys = list(terms)
         flat = torch.cat([t.reshape(-1) for t in leaves]
                          + [terms[k].reshape(1) for k in keys])
-        with record_function("dd-comm-allreduce"):
+        with scope("comm_allreduce"):
             flat = self.comm.all_reduce(flat) / self.n
         out, ofs = [], 0
         for t in leaves:

@@ -89,6 +89,7 @@ import math
 import torch
 
 from repro_torch.kernels import native
+from repro_torch.obs.profiling import scope
 
 NEG_INF = -1e30   # masked score (the TPU kernel's NEG_INF; exp stays finite)
 DH_MAX = 128      # widest head the kernel takes
@@ -301,8 +302,7 @@ class _FlashAttentionTrain(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
         recomputes["flash_attention_vjp"] += 1
-        with torch.profiler.record_function("flash_attention_vjp"), \
-                torch.enable_grad():
+        with scope("flash_attention_vjp"), torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             o = attention_blocks(*leaves, causal=ctx.causal,
                                  block_q=ctx.block_q)

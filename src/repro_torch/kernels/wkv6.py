@@ -46,6 +46,7 @@ import functools
 import torch
 
 from repro_torch.kernels import native
+from repro_torch.obs.profiling import scope
 
 P_MAX = 128   # widest head the kernels take
 
@@ -173,7 +174,7 @@ class _Wkv6Train(torch.autograd.Function):
     def backward(ctx, dy):
         saved = ctx.saved_tensors
         recomputes["wkv6_vjp"] += 1
-        with torch.profiler.record_function("wkv6_vjp"), torch.enable_grad():
+        with scope("wkv6_vjp"), torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in saved]
             r = leaves[0]
             B, T, H, P = r.shape

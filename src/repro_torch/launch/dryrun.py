@@ -103,6 +103,7 @@ from repro_torch.models import expert_parallel as EP
 from repro_torch.models import partition as PT
 from repro_torch.models.sharding import P, rules_for, use_rules
 from repro_torch.models.sharding import spec as lspec
+from repro_torch.obs.profiling import scope
 from repro_torch.optim import adam as adam_lib
 from repro_torch.utils import collectives as COL
 from repro_torch.utils.collectives import CollectiveRecorder
@@ -260,7 +261,8 @@ class _Trace(TorchDispatchMode):
         if self.per_rank:
             if any(type(t).__name__ == "FakeTensor" for t in ins + outs):
                 return out
-            self.ops[str(func.overloadpacket)] += 1
+            if func.namespace != "profiler":   # scopes are no work
+                self.ops[str(func.overloadpacket)] += 1
             formula = flop_registry.get(func.overloadpacket)
             if formula is not None:
                 self.flops += formula(*args, **kwargs, out_val=out)
@@ -341,7 +343,7 @@ def _accumulated_step(model, params, opt, batch, micro_batches: int):
                                             norm=EP.global_norm(grads))
     lr = adam_lib.warmup_cosine(torch.tensor(0, device=loss.device), 1e-4,
                                 warmup=20, total=1)
-    with torch.profiler.record_function("adam_update"):
+    with scope("adam_update"):
         params, opt = adam_lib.adam_update(grads, opt, params, lr)
     return params, opt, loss.detach()
 

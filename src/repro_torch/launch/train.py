@@ -79,6 +79,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models import expert_parallel as EP
 from repro_torch.models import make_batch as make_lm_batch
+from repro_torch.obs.profiling import scope
 from repro_torch.optim import adam as adam_lib
 
 
@@ -269,7 +270,7 @@ def lm_train_step(model, params, opt, batch, step: int, peak_lr: float,
                                              norm=EP.global_norm(grads))
     lr = adam_lib.warmup_cosine(torch.tensor(step, device=loss.device),
                                 peak_lr, warmup=20, total=total)
-    with torch.profiler.record_function("adam_update"):
+    with scope("adam_update"):
         params, opt = adam_lib.adam_update(grads, opt, params, lr)
     return params, opt, loss.detach(), gn
 

@@ -55,6 +55,7 @@ from repro_torch.models.partition import (constrain, fsdp_gathered,
                                           is_dtensor, on_shards,
                                           policy_active, split_kv_attention,
                                           ungathered, unsharded, write_at)
+from repro_torch.obs.profiling import scope
 
 # ------------------------------------------------------------------------- init
 
@@ -104,6 +105,13 @@ def stack_init(layer_init, gen, n_layers):
         map_trees(lambda o, t: o[l].copy_(t), out, layer)
         del layer
     return out
+
+
+def cast(w, dtype):
+    """``w.to(dtype)``: a float32 weight cast to the compute dtype at its
+    call, under the ``weight_cast`` scope."""
+    with scope("weight_cast"):
+        return w.to(dtype)
 
 
 # ------------------------------------------------------------------------ norms
@@ -226,9 +234,9 @@ def gqa_logical(bias=False):
 def gqa_query(p, x, n_heads, head_dim, dtype):
     """The query projection of :func:`gqa_project` alone (B, S, H, dh)."""
     B, S, _ = x.shape
-    q = x @ p["wq"].to(dtype)
+    q = x @ cast(p["wq"], dtype)
     if "bq" in p:
-        q = q + p["bq"].to(dtype)
+        q = q + cast(p["bq"], dtype)
     return constrain(q.reshape(B, S, n_heads, head_dim), "batch", "seq",
                      "heads", None)
 
@@ -236,11 +244,11 @@ def gqa_query(p, x, n_heads, head_dim, dtype):
 def gqa_project(p, x, n_heads, n_kv, head_dim, dtype):
     B, S, _ = x.shape
     q = gqa_query(p, x, n_heads, head_dim, dtype)
-    k = x @ p["wk"].to(dtype)
-    v = x @ p["wv"].to(dtype)
+    k = x @ cast(p["wk"], dtype)
+    v = x @ cast(p["wv"], dtype)
     if "bq" in p:
-        k = k + p["bk"].to(dtype)
-        v = v + p["bv"].to(dtype)
+        k = k + cast(p["bk"], dtype)
+        v = v + cast(p["bv"], dtype)
     return (q,
             k.reshape(B, S, n_kv, head_dim),
             v.reshape(B, S, n_kv, head_dim))
@@ -277,7 +285,7 @@ def attention_block(p, x, *, cfg, positions, cache=None, pos=None,
         out = decode_attention(q, ck.to(dtype), cv.to(dtype), kv_len - 1)
     B, S = x.shape[:2]
     out = out.reshape(B, S, cfg.n_heads * cfg.hd)
-    return out @ p["wo"].to(dtype), new_cache
+    return out @ cast(p["wo"], dtype), new_cache
 
 
 def _scatter_prefill(cache, fresh):
@@ -303,9 +311,9 @@ def swiglu_logical():
 
 def swiglu(p, x):
     dt = x.dtype
-    h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wi"].to(dt))
+    h = F.silu(x @ cast(p["wg"], dt)) * (x @ cast(p["wi"], dt))
     h = constrain(h, "batch", "seq", "ff")
-    return h @ p["wo"].to(dt)
+    return h @ cast(p["wo"], dt)
 
 
 def init_gelu_mlp(gen, d_model, d_ff, std=0.02):
@@ -325,9 +333,10 @@ def gelu_mlp_logical():
 def gelu_mlp(p, x):
     """The reference's ``jax.nn.gelu`` is the tanh approximation."""
     dt = x.dtype
-    h = F.gelu(x @ p["wi"].to(dt) + p["bi"].to(dt), approximate="tanh")
+    h = F.gelu(x @ cast(p["wi"], dt) + cast(p["bi"], dt),
+               approximate="tanh")
     h = constrain(h, "batch", "seq", "ff")
-    return h @ p["wo"].to(dt) + p["bo"].to(dt)
+    return h @ cast(p["wo"], dt) + cast(p["bo"], dt)
 
 
 # ----------------------------------------------------------------- vocab layers
@@ -355,7 +364,7 @@ def _mask_padded_vocab(logits, n_valid):
 
 
 def unembed(p, x, n_valid=None):
-    logits = x @ p["table"].to(x.dtype).T
+    logits = x @ cast(p["table"], x.dtype).T
     return _mask_padded_vocab(constrain(logits, "batch", "seq", "vocab"),
                               n_valid)
 
@@ -369,7 +378,7 @@ def lm_head_logical():
 
 
 def lm_head(p, x, n_valid=None):
-    logits = constrain(x @ p["w"].to(x.dtype), "batch", "seq", "vocab")
+    logits = constrain(x @ cast(p["w"], x.dtype), "batch", "seq", "vocab")
     return _mask_padded_vocab(logits, n_valid)
 
 
@@ -408,14 +417,13 @@ class _ChunkNLL(torch.autograd.Function):
     def forward(ctx, xi, wt, li, mi, transpose_w, n_valid):
         ctx.save_for_backward(xi, wt, li, mi)
         ctx.args = (transpose_w, n_valid)
-        with torch.profiler.record_function("fused_head_ce"):
+        with scope("fused_head_ce"):
             return _ChunkNLL._nll(xi, wt, li, mi, transpose_w, n_valid)
 
     @staticmethod
     def backward(ctx, g):
         xi, wt, li, mi = ctx.saved_tensors
-        with torch.profiler.record_function("fused_head_ce"), \
-                torch.enable_grad():
+        with scope("fused_head_ce"), torch.enable_grad():
             xd, wd = xi.detach().requires_grad_(), wt.detach().requires_grad_()
             nll = _ChunkNLL._nll(xd, wd, li, mi, *ctx.args)
             dx, dw = torch.autograd.grad(nll, (xd, wd), g)
@@ -443,7 +451,7 @@ def fused_head_cross_entropy(x, w, labels, mask=None, chunk=512,
         mask = F.pad(mask, (0, pad))
     # one cast of the head for all chunks (the reference casts inside
     # each; the values are the same)
-    wt = w.to(x.dtype)
+    wt = cast(w, x.dtype)
     total = x.new_zeros((), dtype=torch.float32)
     for i in range(n_chunks):
         sl = slice(i * ck, (i + 1) * ck)
@@ -503,16 +511,20 @@ def scan_layers(block_fn, stacked_params, x, cache=None, remat=False,
     ``bmm``), trading memory for recompute."""
     stacked_params = ungathered(stacked_params)
     n_layers = tree_leaves(stacked_params)[0].shape[0]
-    if is_dtensor(tree_leaves(stacked_params)[0]):
-        # each layer's FSDP-sharded weights gathered inside the layer (and
-        # again in its remat recompute)
-        inner = block_fn
+    gathered = is_dtensor(tree_leaves(stacked_params)[0])
 
-        def block_fn(lp, h, lc):
+    def layer(lp, h, lc):
+        # the layer's scope opens inside the checkpointed function, so its
+        # remat recompute opens one too
+        with scope("lm_layer"):
+            if not gathered:
+                return block_fn(lp, h, lc)
+            # each layer's FSDP-sharded weights gathered inside the layer
+            # (and again in its remat recompute)
             with policy_active():
-                return inner(fsdp_gathered(lp), h, lc)
-    fn = _remat(block_fn, policy) if remat and torch.is_grad_enabled() \
-        else block_fn
+                return block_fn(fsdp_gathered(lp), h, lc)
+    fn = _remat(layer, policy) if remat and torch.is_grad_enabled() \
+        else layer
     new = []
     for l in range(n_layers):
         lc = None if cache is None else map_tree(lambda t: t[l], cache)

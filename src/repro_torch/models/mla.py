@@ -34,6 +34,7 @@ from repro_torch.models.causal_lm import BlockDef, register_block
 from repro_torch.models.partition import (constrain, split_kv_attention,
                                           write_at)
 from repro_torch.models.sharding import add_layer_axis
+from repro_torch.obs.profiling import scope
 
 
 def init(gen, cfg: ModelConfig):
@@ -60,16 +61,17 @@ def init(gen, cfg: ModelConfig):
 def _project_q(p, x, cfg, dtype, positions):
     B, S, _ = x.shape
     H, qk = cfg.n_heads, cfg.nope_dim + cfg.rope_dim
-    cq = L.rms_norm(x @ p["wdq"].to(dtype), p["q_norm"], cfg.norm_eps)
-    q = (cq @ p["wuq"].to(dtype)).reshape(B, S, H, qk)
+    cq = L.rms_norm(x @ L.cast(p["wdq"], dtype), p["q_norm"], cfg.norm_eps)
+    q = (cq @ L.cast(p["wuq"], dtype)).reshape(B, S, H, qk)
     q = constrain(q, "batch", "seq", "heads", None)
     q_nope, q_rope = q[..., :cfg.nope_dim], q[..., cfg.nope_dim:]
     return q_nope, L.apply_rope(q_rope, positions, cfg.rope_theta)
 
 
 def _latents(p, x, cfg, dtype, positions):
-    ckv = L.rms_norm(x @ p["wdkv"].to(dtype), p["kv_norm"], cfg.norm_eps)
-    kr = (x @ p["wkr"].to(dtype))[:, :, None, :]            # (B, S, 1, rope)
+    ckv = L.rms_norm(x @ L.cast(p["wdkv"], dtype), p["kv_norm"],
+                     cfg.norm_eps)
+    kr = (x @ L.cast(p["wkr"], dtype))[:, :, None, :]       # (B, S, 1, rope)
     kr = L.apply_rope(kr, positions, cfg.rope_theta)
     return ckv, kr[:, :, 0, :]
 
@@ -80,14 +82,17 @@ def _expanded_attention(p, x, cfg, dtype, positions, q_offset, plain):
     H = cfg.n_heads
     q_nope, q_rope = _project_q(p, x, cfg, dtype, positions)
     ckv, kr = _latents(p, x, cfg, dtype, positions)
-    k_nope = (ckv @ p["wuk"].to(dtype)).reshape(B, S, H, cfg.nope_dim)
-    v = (ckv @ p["wuv"].to(dtype)).reshape(B, S, H, cfg.v_head_dim)
-    k_rope = kr[:, :, None, :].expand(B, S, H, cfg.rope_dim)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope], dim=-1)
+    with scope("mla_expand"):   # the latents to K5's operands
+        k_nope = (ckv @ L.cast(p["wuk"], dtype)).reshape(B, S, H,
+                                                         cfg.nope_dim)
+        v = (ckv @ L.cast(p["wuv"], dtype)).reshape(B, S, H,
+                                                    cfg.v_head_dim)
+        k_rope = kr[:, :, None, :].expand(B, S, H, cfg.rope_dim)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope], dim=-1)
     out = L.chunked_attention(q, k, v, causal=True, q_offset=q_offset,
                               block_q=cfg.attn_block_q, plain=plain)
-    return out.reshape(B, S, H * cfg.v_head_dim) @ p["wo"].to(dtype)
+    return out.reshape(B, S, H * cfg.v_head_dim) @ L.cast(p["wo"], dtype)
 
 
 def _absorbed_decode(p, x, cfg, dtype, positions, cache, pos):
@@ -103,8 +108,8 @@ def _absorbed_decode(p, x, cfg, dtype, positions, cache, pos):
                    None)
     new_cache = {"ckv": ckv, "kr": kr}
 
-    wuk = p["wuk"].to(dtype).reshape(cfg.kv_lora, H, cfg.nope_dim)
-    wuv = p["wuv"].to(dtype).reshape(cfg.kv_lora, H, cfg.v_head_dim)
+    wuk = L.cast(p["wuk"], dtype).reshape(cfg.kv_lora, H, cfg.nope_dim)
+    wuv = L.cast(p["wuv"], dtype).reshape(cfg.kv_lora, H, cfg.v_head_dim)
     q_c = torch.einsum("bqhn,chn->bqhc", q_nope, wuk)         # absorb W_uk
     scale = 1.0 / math.sqrt(cfg.nope_dim + cfg.rope_dim)
 
@@ -133,7 +138,7 @@ def _absorbed_decode(p, x, cfg, dtype, positions, cache, pos):
     ctx_c = split_kv_attention((q_c, q_rope), (ckv, kr), kv_len, plain=plain,
                                partial=partial)
     out = torch.einsum("bqhc,chv->bqhv", ctx_c, wuv.float()).to(dtype)
-    return out.reshape(B, S, H * cfg.v_head_dim) @ p["wo"].to(dtype), \
+    return out.reshape(B, S, H * cfg.v_head_dim) @ L.cast(p["wo"], dtype), \
         new_cache
 
 

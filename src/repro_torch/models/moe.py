@@ -51,6 +51,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.causal_lm import BlockDef, register_block
 from repro_torch.models.partition import constrain, expert_einsum
 from repro_torch.models.sharding import add_layer_axis
+from repro_torch.obs.profiling import backward_scope, scope
 
 
 def init(gen, cfg: ModelConfig):
@@ -109,7 +110,7 @@ def route(cfg: ModelConfig, p, xg):
     in xg's dtype and is then cast to float32, as in the reference; the
     top k come from a stable descending sort, so ties keep the lower
     expert first."""
-    logits = (xg @ p["router"].to(xg.dtype)).float()
+    logits = (xg @ L.cast(p["router"], xg.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = vals[..., :cfg.top_k], idx[..., :cfg.top_k]
@@ -159,10 +160,10 @@ def _dispatch(cfg: ModelConfig, xg, idx, gate, ex, m: int = 0):
     buf = buf[:-1].reshape(G, E_loc, C, d)
     buf = constrain(buf, "batch", "expert", None, None)
 
-    h = F.silu(expert_einsum("gecd,edf->gecf", buf, ex["wg"].to(dt)))
-    h = h * expert_einsum("gecd,edf->gecf", buf, ex["wi"].to(dt))
+    h = F.silu(expert_einsum("gecd,edf->gecf", buf, L.cast(ex["wg"], dt)))
+    h = h * expert_einsum("gecd,edf->gecf", buf, L.cast(ex["wi"], dt))
     h = constrain(h, "batch", "expert", None, None)
-    out_buf = expert_einsum("gecf,efd->gecd", h, ex["wo"].to(dt))
+    out_buf = expert_einsum("gecf,efd->gecd", h, L.cast(ex["wo"], dt))
     out_buf = constrain(out_buf, "batch", "expert", None, None)
 
     # combine: a gather over (token, slot), gated, summed over the k slots
@@ -172,7 +173,16 @@ def _dispatch(cfg: ModelConfig, xg, idx, gate, ex, m: int = 0):
 
 
 def moe_ffn(cfg: ModelConfig, p, x):
-    """Grouped sort-based dispatch. x: (B, S, d) -> (out, aux_loss)."""
+    """Grouped sort-based dispatch. x: (B, S, d) -> (out, aux_loss).
+
+    The forward runs in the ``moe_ffn`` scope, the backward in the
+    ``moe_ffn.bwd`` range (``obs.profiling.backward_scope``)."""
+    with scope("moe_ffn"):
+        x, finish = backward_scope("moe_ffn.bwd", x)
+        return finish(*_moe_ffn(cfg, p, x))
+
+
+def _moe_ffn(cfg: ModelConfig, p, x):
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
@@ -208,7 +218,14 @@ def moe_ffn_shardmap(cfg: ModelConfig, p, x, ep=None):
     expert's summed probability and count over the global token count
     (and k), so their sum over the data shards gives the reference's
     ``me`` and ``ce``; ``CausalLM.loss`` forms ``E * sum(me * ce)``.
-    ``ep`` is the context (default: the current one)."""
+    ``ep`` is the context (default: the current one).  Scoped as
+    :func:`moe_ffn`."""
+    with scope("moe_ffn"):
+        x, finish = backward_scope("moe_ffn.bwd", x)
+        return finish(*_moe_ffn_shardmap(cfg, p, x, ep))
+
+
+def _moe_ffn_shardmap(cfg: ModelConfig, p, x, ep):
     ep = ep if ep is not None else EP.current_ep()
     if ep is None:
         raise ValueError(

@@ -37,7 +37,7 @@ from repro_torch.obs.trace_export import (ChromeTraceError,
                                           halo_flow_events, to_chrome,
                                           training_timeline,
                                           validate_chrome_trace)
-from repro_torch.obs.profiling import (SCOPES, CompileWatcher,
+from repro_torch.obs.profiling import (PORT_SCOPES, SCOPES, CompileWatcher,
                                        comp_comm_split, compile_counts,
                                        halo_traffic, scope)
 from repro_torch.obs.tracing import Span, Tracer
@@ -93,6 +93,6 @@ __all__ = [
     "ChromeTraceError", "export_chrome_trace", "halo_flow_events",
     "to_chrome", "training_timeline", "validate_chrome_trace",
     "Obs", "make_obs",
-    "profiling", "SCOPES", "scope", "CompileWatcher", "compile_counts",
-    "comp_comm_split", "halo_traffic", "trajectory",
+    "profiling", "SCOPES", "PORT_SCOPES", "scope", "CompileWatcher",
+    "compile_counts", "comp_comm_split", "halo_traffic", "trajectory",
 ]

@@ -3,13 +3,18 @@
 Counterpart of the reference package's ``obs/profiling.py``:
 
 * **named-scope annotation scheme** — :func:`scope` opens a
-  ``torch.profiler.record_function`` range named from one vocabulary
-  (:data:`SCOPES`): communication ``dd-comm-halo`` (the interface
-  exchange), compute ``dd-comp-forward`` / ``dd-comp-update`` (the
-  megabatched network entry; the loss backward and Adam), and the
-  ``pinn2-bwd-*`` backward markers.  The ranges land in a
-  ``torch.profiler`` trace (host events, and device annotations around the
-  kernels they launch), so a trace can be split by phase;
+  ``torch.profiler.record_function`` range named from one vocabulary:
+  the reference's (:data:`SCOPES`: communication ``dd-comm-halo``, the
+  interface exchange; compute ``dd-comp-forward`` / ``dd-comp-update``,
+  the megabatched network entry, the loss backward and Adam; the
+  ``pinn2-bwd-*`` backward markers) and the port's own
+  (:data:`PORT_SCOPES`: the distributed trainer's all-reduce and the LM
+  path's ranges, from one layer of the layer loop down to its weight
+  casts).  The ranges land in a ``torch.profiler`` trace (host events,
+  and device annotations around the kernels they launch), so a trace can
+  be split by phase.  Where nothing reads them (no profiler, no dispatch
+  mode) a scope is one shared no-op, so scopes may sit inside the layer
+  loop; :func:`backward_scope` brackets a block's backward in a range;
 
 * **build/load counter** — :class:`CompileWatcher` counts what the port
   compiles: the CUDA kernels' ``nvcc`` builds and library loads
@@ -27,10 +32,12 @@ Counterpart of the reference package's ``obs/profiling.py``:
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import defaultdict
 
 import numpy as np
+import torch
 from torch.profiler import record_function
 
 # The annotation scheme: one stable name per phase.  Keys are the phase
@@ -44,17 +51,112 @@ SCOPES = {
     "bwd_ref": "pinn2-bwd-ref",
     "bwd_fused_select": "pinn2-bwd-fused-select",
 }
+# The port's own ranges, named as benchmark readers and ``chip_smoke.py``
+# read them: the distributed trainer's gradient all-reduce and the LM
+# path's.  ``lm_layer``: one layer of ``layers.scan_layers`` (forward, and
+# its remat recompute); ``moe_ffn``: the MoE layer's forward (router, aux
+# counts, dispatch, experts, shared experts); ``moe_ffn.bwd``: its
+# backward (:func:`backward_scope`); ``mla_expand``: MLA's latents
+# expanded to K5's k and v; ``weight_cast``: one per-call cast of a
+# float32 weight to the compute dtype (``layers.cast``).
+PORT_SCOPES = {
+    "comm_allreduce": "dd-comm-allreduce",
+    "adam_update": "adam_update",
+    "flash_attention_vjp": "flash_attention_vjp",
+    "wkv6_vjp": "wkv6_vjp",
+    "fused_head_ce": "fused_head_ce",
+    "lm_layer": "lm_layer",
+    "moe_ffn": "moe_ffn",
+    "moe_ffn.bwd": "moe_ffn.bwd",
+    "mla_expand": "mla_expand",
+    "weight_cast": "weight_cast",
+}
+_NAMES = {**SCOPES, **PORT_SCOPES}
+_NOOP = contextlib.nullcontext()
+_profiler_enabled = torch.autograd._profiler_enabled
+_dispatch_modes = torch._C._len_torch_dispatch_stack
+
+
+def _name(phase: str) -> str:
+    try:
+        return _NAMES[phase]
+    except KeyError:
+        raise ValueError(f"unknown profiling phase {phase!r}; "
+                         f"known: {sorted(_NAMES)}") from None
 
 
 def scope(phase: str):
     """``with scope("comm"): ...`` — a ``record_function`` range named from
     the phase vocabulary (unknown phases raise: the scheme only works if
-    names stay canonical)."""
-    try:
-        return record_function(SCOPES[phase])
-    except KeyError:
-        raise ValueError(f"unknown profiling phase {phase!r}; "
-                         f"known: {sorted(SCOPES)}") from None
+    names stay canonical).
+
+    The range opens only where something reads it: a profiler is on (its
+    state reaches the autograd engine's threads) or a dispatch mode is
+    active (``utils.collectives.CollectiveRecorder`` reads the scopes
+    through the dispatcher).  Otherwise the scope is one shared no-op
+    context, a fraction of a microsecond where a ``record_function``
+    costs microseconds."""
+    name = _name(phase)
+    if _profiler_enabled() or _dispatch_modes():
+        return record_function(name)
+    return _NOOP
+
+
+class _CloseRange(torch.autograd.Function):
+    """The identity on a block's input; its backward, the block's last,
+    closes the range that :class:`_OpenRange` opened."""
+
+    @staticmethod
+    def forward(ctx, handles, x):
+        ctx.handles = handles
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.handles:
+            torch.ops.profiler._record_function_exit._RecordFunction(
+                ctx.handles.pop())
+        return None, grad
+
+
+class _OpenRange(torch.autograd.Function):
+    """The identity on a block's outputs; its backward, the block's first,
+    opens the range."""
+
+    @staticmethod
+    def forward(ctx, handles, name, *outs):
+        ctx.handles, ctx.range_name = handles, name
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.handles.append(torch.ops.profiler._record_function_enter_new(
+            ctx.range_name, None))
+        return (None, None, *grads)
+
+
+def _unchanged(*outs):
+    return outs
+
+
+def backward_scope(phase: str, x):
+    """Bracket a block's backward in the range ``phase``: ``x, finish =
+    backward_scope(phase, x)`` on the block's input, then ``return
+    finish(*outputs)``.
+
+    Where a profiler is on and ``x`` takes a gradient, ``x`` and the
+    outputs pass through identities whose backward nodes close and open
+    the range.  The autograd engine runs ready nodes in descending
+    sequence number, so the block's own backward nodes run between the
+    two, on one engine thread.  Otherwise nothing is inserted: ``x`` and
+    the outputs come back as they are."""
+    name = _name(phase)
+    if not (_profiler_enabled() and torch.is_grad_enabled()
+            and x.requires_grad):
+        return x, _unchanged
+    handles = []
+    x = _CloseRange.apply(handles, x)
+    return x, lambda *outs: _OpenRange.apply(handles, name, *outs)
 
 
 # ------------------------------------------------------- build/load count

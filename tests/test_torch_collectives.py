@@ -183,7 +183,8 @@ def test_ep_forward_all_reduce_equals_the_reference_psum(reference,
         [(t["kind"], t["bytes"], t["group"]) for t in want] == \
         [("all-reduce", float(B // 2 * S * cfg.d_model * 4), M)]
     assert got[0]["sig"] == f"f32[{B // 2 * S},{cfg.d_model}]"
-    assert got[0]["op_name"] == "dd-comm-halo"
+    # the path of scopes: the caller's, then the MoE layer's own
+    assert got[0]["op_name"] == "dd-comm-halo/moe_ffn"
     assert C.collective_bytes(rec.record, group="data")["counts"] == {}
 
 
